@@ -8,8 +8,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. card:    the card's name and power limit (nvidia-smi); build the CUDA
             synthesis kernels (nvcc, sm_90a) and the port's C++ scanner.
 2. parity:  each kernel route against the plain torch version on the card,
-            random inputs from a numpy seed, nine geometries; tolerance 0
-            (PCM and final carry bit-equal).
+            random inputs from a numpy seed, on the PARITY geometries;
+            tolerance 0 (PCM and final carry bit-equal).
 3. corpus:  decode_corpus_device(device="cuda") over the bench corpus mix
             (bench.py's counts, ~120 M samples) — launch counters reset just
             before and read just after — checked file by file against the
@@ -18,7 +18,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. numbers: end-to-end Msamples/s (host clock around work that ends in
             torch.cuda.synchronize()), each kernel's time per bench
             geometry with CUDA events beside the plain version's time and
-            the bound, and one JSON line of kernels.
+            the bound, its launch shape (shared memory per CTA, resident
+            CTAs per SM), and one JSON line of kernels.
 
 The last line is {"ok": true, "device": {...}}. Needs no network; imports
 torch, numpy and libacm_tpu_torch only.
@@ -57,10 +58,13 @@ MIX = [
 N_HOSTILE = 5  # 3 bit-flipped + 2 truncated level-7 members, as bench.py
 
 #: kernel parity geometries (level, rows, files, blocks per file): the
-#: bench geometries, then the extremes
+#: bench geometries, then the extremes, then the fused route's edges
+#: (many files; nb below one tile; n % 8 != 0, where k is staged in
+#: copies narrower than 16 bytes; spans of several tiles cut mid-file)
 PARITY = [(7, 16, 3, 41), (4, 40, 2, 37), (10, 4, 2, 9), (0, 2048, 2, 5),
           (10, 1, 2, 6), (14, 1, 1, 4), (15, 16, 1, 3), (5, 33, 2, 7),
-          (9, 3, 2, 6)]
+          (9, 3, 2, 6), (7, 16, 40, 13), (7, 16, 1, 3), (1, 3, 2, 9),
+          (2, 3, 3, 7), (7, 16, 100, 20), (4, 40, 200, 40)]
 
 
 class SmokeFailure(RuntimeError):
@@ -204,11 +208,15 @@ def profile_breakdown(torch, corpus, files, card: str) -> None:
 
 
 def _time_ms(torch, fn, reps: int) -> float:
+    """Device time per call: CUDA events around `reps` calls queued behind
+    a sleeping kernel, so that the card runs them back to back and the
+    host's time to launch them is not counted."""
     fn()
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms of the card's clock
     a.record()
     for _ in range(reps):
         fn()
@@ -365,6 +373,15 @@ def main() -> int:
         plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=5)
         bms, by = bound(level, rows, B, nb)
+        cfg = synth_cuda.fused_config(level, rows, B, nb, dev) or {
+            "smem_bytes": 0, "ctas_per_sm": synth_cuda.ctas_per_sm(
+                route, 0, dev)}
+        print(f"phase 4: launch {level}/{rows} [B={B}, nb={nb}] {route}: "
+              f"{cfg['smem_bytes']} B shared memory per CTA, "
+              f"{cfg['ctas_per_sm']} resident CTAs per SM"
+              + (f", tile {cfg['T']} blocks, span {cfg['span']} blocks, "
+                 f"grid {cfg['grid']}, {cfg['threads']} threads"
+                 if "T" in cfg else ""))
         print(f"phase 4: synthesis {level}/{rows} [B={B}, nb={nb}] "
               f"{route}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({by}), {bms / ms:.1%} of bound "
@@ -377,6 +394,8 @@ def main() -> int:
             "max_abs_err": max(err, parity_err[route]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,
+            "smem_bytes": cfg["smem_bytes"],
+            "ctas_per_sm": cfg["ctas_per_sm"],
             "shape": f"level {level}, rows {rows}, B {B}, nb {nb}",
             "parity": f"bit-equal on {parity_n[route]} geometries",
         })

@@ -15,16 +15,31 @@
 //
 // Two routes, chosen by the host wrapper (ops/synth_cuda.py):
 //
-// * synth_fused_kernel — rows >= 2 and the tile fits shared memory. One CTA
-//   takes T consecutive blocks of one file. The TPU kernel carried the halo
-//   in VMEM scratch across a grid that runs in order; CTAs run in parallel,
-//   so each CTA instead re-synthesizes the block before its tile from a zero
-//   carry. That is exact for rows >= 2: the zero halo pollutes at most the
-//   first 2*cols-2 outputs of that block, and the tile reads only its last
-//   2s inputs of each pass (libacm_tpu_torch.ops.synth_torch.carry_of_block).
-//   Tile 0 takes wrap0's pass-p segment as its halo before every pass. Each
-//   pass is a flat stencil between two shared-memory buffers, so k is read
-//   and PCM written once: 4 bytes of device memory per sample.
+// * synth_fused_kernel — rows >= 2, level >= 1, and a tile of one block
+//   fits shared memory. It replaces an earlier one-tile-per-CTA design,
+//   which re-synthesized a predecessor block for every tile of T blocks, loaded
+//   its whole tile before its passes and stored it after (so memory and
+//   ALUs took turns), and fit one CTA per SM. Here:
+//   - Each CTA takes a span of consecutive blocks of one file and walks it
+//     in tiles of T blocks, in order: the loop inside the CTA takes the
+//     place of the TPU's sequential grid. Between tiles it carries each
+//     pass's last 2s inputs in shared memory, in the reference's wrap
+//     layout (pass p at offset sum_{q<p} 2*s_q). A span at block 0 starts
+//     from wrap0; any other span first synthesizes block blk0-1 from a
+//     zero carry and discards its PCM — exact for rows >= 2, since the
+//     zero halo pollutes at most the first 2*cols-2 outputs of that block
+//     and the carry is the block's last 2s inputs of each pass
+//     (libacm_tpu_torch.ops.synth_torch.carry_of_block). That costs one
+//     block per span, not per tile. The CTA whose span ends at block nb
+//     writes the carry to wrap_f.
+//   - The tile is sized for two resident CTAs per SM, and the spans for
+//     about one wave of them (synth_cuda.fused_plan).
+//   - The next tile's k is copied into a second staging buffer with
+//     cp.async (16 bytes a copy where n % 8 == 0 and k is 16-byte aligned,
+//     else 8, 4 or 2) while the current tile's passes run. Pass 0 reads k
+//     from staging and multiplies by the tile's vals (no dequantize sweep).
+//   - Each pass is a flat stencil between two shared-memory buffers whose
+//     halo holds that pass's carry; the last buffer is stored as PCM.
 // * synth_pass_kernel — every other geometry (rows == 1, where the re-synth
 //   is not exact; tiles too large for shared memory; level 0). One launch
 //   per pass over each file's whole flat stream in device memory, the halo
@@ -34,10 +49,12 @@
 // Arithmetic is uint32 (signed overflow is undefined in C++; the format
 // wraps), converted to int32 only for the arithmetic >> level.
 //
-// Bound: at level L each sample costs about 4L+2 int32 operations against
-// 4 bytes of traffic, so above level 1 the int32 issue rate, not memory,
-// bounds the fused route; the design keeps every intermediate pass in
-// shared memory so that it stays that way.
+// Bound: k is read and PCM written once (4 bytes a sample) against about
+// 2*level+2 int32 operations a sample (dequantize, two adds per pass, the
+// shift). On an H100 (3.35 TB/s, 132 SMs x 64 int32 lanes x 1.98 GHz) the
+// bytes bound is the larger at 7/16 and 4/40 and the operations bound at
+// 10/4. What the kernel pays beyond either is shared-memory traffic (three
+// loads and a store per element per pass) and index arithmetic.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,73 +73,178 @@ __device__ __forceinline__ int16_t to_pcm(uint32_t y, int level) {
   return (int16_t)(uint16_t)((int32_t)y >> level);
 }
 
-// Shared memory per buffer: H = cols halo words, then (T+1)*n words (the
-// re-synthesized predecessor block, then the tile). Buffer index j holds
-// flat index f = j - H, counted from the predecessor's first word.
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ int up(int x, int m) { return (x + m - 1) / m * m; }
+
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (W == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(W));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy Tt blocks of k (n int16 each) and their vals into staging, `width`
+// bytes a copy. Widths 16, 8 and 4 are asynchronous; width 2 (k not
+// 4-byte aligned) is a plain copy, complete at the next barrier.
+__device__ __forceinline__ void stage_tile(const int16_t* __restrict__ src,
+                                           const int32_t* __restrict__ vsrc,
+                                           int16_t* dst, int32_t* vdst, int Tt,
+                                           int n, int width) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int bytes = 2 * Tt * n;
+  const char* s = (const char*)src;
+  char* d = (char*)dst;
+  if (width == 16) {
+    for (int i = 16 * tid; i < bytes; i += 16 * nt) cp_async<16>(d + i, s + i);
+  } else if (width == 8) {
+    for (int i = 8 * tid; i < bytes; i += 8 * nt) cp_async<8>(d + i, s + i);
+  } else if (width == 4) {
+    for (int i = 4 * tid; i < bytes; i += 4 * nt) cp_async<4>(d + i, s + i);
+  } else {
+    for (int i = tid; i < Tt * n; i += nt) dst[i] = src[i];
+  }
+  for (int i = tid; i < Tt; i += nt) vdst[i] = vsrc[i];
+  cp_async_commit();
+}
+
+// Shared memory (words): carry [up(2*cols-2, 4)], tile vals [up(2*T, 4)],
+// pass buffers X0, X1 [up(H + T*n, 4)] each with H = cols halo words
+// before the tile (X[H + e] holds element e of the tile), then two
+// staging buffers of up(T*n, 8) int16. synth_cuda.fused_smem_bytes
+// mirrors this.
+__global__ void __launch_bounds__(512, 2)
 synth_fused_kernel(const int16_t* __restrict__ k,
                    const int32_t* __restrict__ vals,
                    const int32_t* __restrict__ wrap0,
                    int16_t* __restrict__ pcm, int32_t* __restrict__ wrapf,
-                   int nb, int level, int rows, int T) {
-  extern __shared__ uint32_t smem[];
+                   int nb, int level, int rows, int T, int span) {
+  extern __shared__ __align__(16) uint32_t smem[];
   const int cols = 1 << level;
   const int n = rows << level;
   const int H = cols;
-  const int S = H + (T + 1) * n;
   const int wlen = 2 * cols - 2;
-  const int b = blockIdx.y;
-  const int blk0 = blockIdx.x * T;
-  const int Tt = min(T, nb - blk0);
-  const bool first = blockIdx.x == 0;
-  const bool last = blk0 + Tt == nb;
-  const int start = first ? H + n : H;
-  const int end = H + (1 + Tt) * n;
+  const int SX = up(H + T * n, 4);
+  const int SN = up(T * n, 8);
+  uint32_t* carry = smem;
+  int32_t* tv = (int32_t*)(carry + up(wlen, 4));
+  uint32_t* X0 = (uint32_t*)(tv + up(2 * T, 4));
+  uint32_t* X1 = X0 + SX;
+  int16_t* stg = (int16_t*)(X1 + SX);
+
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int b = blockIdx.y;
+  const int blk0 = blockIdx.x * span;
+  const int blk_end = min(nb, blk0 + span);
+  const int first = blk0 ? blk0 - 1 : 0;  // the re-synthesized block
+  const int ntiles = (blk_end - first + T - 1) / T;
+  const int16_t* kf = k + (int64_t)b * nb * n;
+  const int32_t* vf = vals + (int64_t)b * nb;
 
-  uint32_t* in = smem;
-  uint32_t* out = smem + S;
-
-  const int src_blk = first ? blk0 : blk0 - 1;
-  const int16_t* kb = k + ((int64_t)b * nb + src_blk) * n;
-  const int32_t* vb = vals + (int64_t)b * nb + src_blk;
-  for (int j = tid; j < end - start; j += nt) {
-    in[start + j] = (uint32_t)(int32_t)kb[j] * (uint32_t)vb[j / n];
-  }
-  if (!first) {
-    for (int j = tid; j < H; j += nt) {
-      in[j] = 0u;
-      out[j] = 0u;
-    }
-  }
-  __syncthreads();
+  const uintptr_t ka = (uintptr_t)k;
+  const int width = (n % 8 == 0 && ka % 16 == 0) ? 16
+                    : (n % 4 == 0 && ka % 8 == 0) ? 8
+                    : (ka % 4 == 0) ? 4 : 2;  // n is even: level >= 1
 
   const int32_t* w0 = wrap0 + (int64_t)b * wlen;
-  int32_t* wf = wrapf + (int64_t)b * wlen;
-  int off = 0;
-  for (int p = 0; p < level; ++p) {
-    const int sh = level - 1 - p;
-    const int s = 1 << sh;
-    if (first) {
-      for (int j = tid; j < 2 * s; j += nt) in[H + n - 2 * s + j] = (uint32_t)w0[off + j];
-      __syncthreads();
+  for (int i = tid; i < wlen; i += nt) carry[i] = blk0 ? 0u : (uint32_t)w0[i];
+  stage_tile(kf + (int64_t)first * n, vf + first, stg, tv, min(T, blk_end - first), n,
+             width);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int tblk = first + t * T;
+    const int Tt = min(T, blk_end - tblk);
+    const int N = Tt * n;
+    const int cur = t & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t staged; tile t-1 finished with every buffer
+    if (t + 1 < ntiles) {
+      const int nblk = tblk + T;
+      stage_tile(kf + (int64_t)nblk * n, vf + nblk, stg + (cur ^ 1) * SN,
+                 tv + (cur ^ 1) * T, min(T, blk_end - nblk), n, width);
     }
-    if (last) {
-      for (int j = tid; j < 2 * s; j += nt) wf[off + j] = (int32_t)in[end - 2 * s + j];
-    }
-    for (int j = start + tid; j < end; j += nt) {
-      out[j] = fir(in[j], in[j - s], in[j - 2 * s], j - H, sh, p == 0);
+    const int16_t* sk = stg + cur * SN;
+    const int32_t* sv = tv + cur * T;
+
+    // pass 0, dequantizing from staging; halo f in [-2s, 0) from the carry
+    {
+      const int sh = level - 1;
+      const int s = 1 << sh;
+      int bi = tid / n, j = tid - bi * n;  // element e = bi*n + j
+      const int dbi = nt / n, dj = nt - dbi * n;
+      for (int e = tid; e < N; e += nt) {
+        const uint32_t v = (uint32_t)sv[bi];
+        const uint32_t a = (uint32_t)(int32_t)sk[e] * v;
+        const uint32_t m = e >= s ? (uint32_t)(int32_t)sk[e - s] *
+                                        (j >= s ? v : (uint32_t)sv[bi - 1])
+                                  : carry[s + e];
+        const uint32_t c = e >= 2 * s ? (uint32_t)(int32_t)sk[e - 2 * s] *
+                                            (j >= 2 * s ? v : (uint32_t)sv[bi - 1])
+                                      : carry[e];
+        X0[H + e] = fir(a, m, c, e, sh, true);
+        j += dj;
+        bi += dbi;
+        if (j >= n) {
+          j -= n;
+          ++bi;
+        }
+      }
+      if (level > 1) {  // pass 1's halo
+        for (int i = tid; i < s; i += nt) X0[H - s + i] = carry[2 * s + i];
+      }
     }
     __syncthreads();
-    uint32_t* t = in;
-    in = out;
-    out = t;
-    off += 2 * s;
+
+    uint32_t* in = X0;
+    uint32_t* out = X1;
+    int off = cols;  // pass 1's carry offset (pass 0's segment is cols long)
+    for (int p = 1; p < level; ++p) {
+      const int sh = level - 1 - p;
+      const int s = 1 << sh;
+      for (int e = tid; e < N; e += nt) {
+        out[H + e] = fir(in[H + e], in[H + e - s], in[H + e - 2 * s], e, sh, false);
+      }
+      for (int i = tid; i < 2 * s; i += nt) carry[off + i] = in[H + N - 2 * s + i];
+      if (p == 1) {  // pass 0's carry: its last inputs, still in staging
+        for (int i = tid; i < cols; i += nt) {
+          carry[i] = (uint32_t)(int32_t)sk[N - cols + i] * (uint32_t)sv[Tt - 1];
+        }
+      }
+      if (p + 1 < level) {  // pass p+1's halo
+        for (int i = tid; i < s; i += nt) out[H - s + i] = carry[off + 2 * s + i];
+      }
+      __syncthreads();
+      uint32_t* tmp = in;
+      in = out;
+      out = tmp;
+      off += 2 * s;
+    }
+
+    const int skip = tblk < blk0 ? n : 0;
+    int16_t* pb = pcm + ((int64_t)b * nb + tblk) * n;
+    for (int e = skip + tid; e < N; e += nt) pb[e] = to_pcm(in[H + e], level);
+    if (level == 1) {
+      for (int i = tid; i < 2; i += nt) {
+        carry[i] = (uint32_t)(int32_t)sk[N - 2 + i] * (uint32_t)sv[Tt - 1];
+      }
+    }
   }
 
-  int16_t* pb = pcm + ((int64_t)b * nb + blk0) * n;
-  for (int j = tid; j < Tt * n; j += nt) pb[j] = to_pcm(in[H + n + j], level);
+  __syncthreads();
+  if (blk_end == nb) {
+    int32_t* wf = wrapf + (int64_t)b * wlen;
+    for (int i = tid; i < wlen; i += nt) wf[i] = (int32_t)carry[i];
+  }
 }
 
 // One FIR pass over each file's flat stream of L = nb*n words. FROM_K:
@@ -171,19 +293,46 @@ synth_pass_kernel(const int16_t* __restrict__ k, const uint32_t* __restrict__ xi
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int acm_synth_fused(const void* k, const void* vals, const void* wrap0,
-                    void* pcm, void* wrapf, int B, int nb, int level, int rows,
-                    int T, int threads, long long smem_bytes, void* stream) {
+static cudaError_t fused_attributes(long long smem_bytes) {
   cudaError_t e = cudaFuncSetAttribute(
       synth_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(synth_fused_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Returns cudaGetLastError() after the launch (0 on success).
+int acm_synth_fused(const void* k, const void* vals, const void* wrap0,
+                    void* pcm, void* wrapf, int B, int nb, int level, int rows,
+                    int T, int span, int threads, long long smem_bytes,
+                    void* stream) {
+  cudaError_t e = fused_attributes(smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((nb + T - 1) / T, B);
+  dim3 grid((nb + span - 1) / span, B);
   synth_fused_kernel<<<grid, threads, (size_t)smem_bytes, (cudaStream_t)stream>>>(
       (const int16_t*)k, (const int32_t*)vals, (const int32_t*)wrap0,
-      (int16_t*)pcm, (int32_t*)wrapf, nb, level, rows, T);
+      (int16_t*)pcm, (int32_t*)wrapf, nb, level, rows, T, span);
   return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM of a route (0: synth_fused_kernel at this shared
+// memory, 1: synth_pass_kernel), or -cudaError on failure.
+int acm_synth_occupancy(int route, int threads, long long smem_bytes) {
+  cudaError_t e = cudaSuccess;
+  int n = 0;
+  if (route == 0) {
+    e = fused_attributes(smem_bytes);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_fused_kernel, threads,
+                                                        (size_t)smem_bytes);
+    }
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, synth_pass_kernel<true, true>, threads, 0);
+  }
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 int acm_synth_pass(const void* k, const void* xin, const void* vals,

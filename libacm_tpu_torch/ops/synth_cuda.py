@@ -11,16 +11,18 @@ plain version; for CUDA tensors it launches a kernel or raises — it never
 falls back to tensor ops.
 
 Bound: k is read (2 bytes) and PCM written (2 bytes) once per sample,
-against about 4*level+2 int32 operations, so above level 1 the card's
-int32 issue rate bounds the work, not its memory. Two routes:
+against about 2*level+2 int32 operations (dequantize, two adds per FIR
+pass, the shift). On an H100 that makes the bytes bound the larger at
+7/16 and 4/40 and the operations bound the larger at 10/4 (chip_smoke.py
+`bound`). Two routes:
 
-- fused (`synth_fused_kernel`): rows >= 2 and a tile of T blocks plus the
-  re-synthesized block before it fits shared memory. Every pass stays in
-  shared memory; one launch per call. The TPU kernel's carry in VMEM
-  scratch across a sequential grid cannot work with CTAs that run in
-  parallel, so each CTA rebuilds its halo from the previous block alone
-  (exact for rows >= 2, see synth_torch.carry_of_block); tile 0 takes
-  wrap0.
+- fused (`synth_fused_kernel`): rows >= 2, level >= 1, and a tile of one
+  block fits shared memory. One launch per call. Each CTA walks a span of
+  consecutive blocks of one file in tiles of T blocks, carrying the halo
+  between tiles; a span that does not start at block 0 first
+  re-synthesizes the block before it from a zero carry (exact for
+  rows >= 2, see synth_torch.carry_of_block). `fused_plan` sizes the tile
+  for two resident CTAs per SM and the spans for about one wave of them.
 - per pass (`synth_pass_kernel`): rows == 1, tiles too large for shared
   memory, and level 0. One launch per pass (one for level 0) over each
   file's flat stream in device memory.
@@ -47,7 +49,13 @@ _BUILD_DIR = _HERE.parent / "_build"
 
 #: shared memory one CTA may use on Hopper (227 KB of the SM's 256 KB)
 SMEM_LIMIT = 232448
-_FUSED_THREADS = 1024
+#: shared memory the CTAs resident on one SM share (228 KB), and what the
+#: runtime reserves for each CTA
+SM_SMEM = 233472
+CTA_RESERVED = 1024
+#: a fused tile's budget: two CTAs resident per SM
+TILE_SMEM = SM_SMEM // 2 - CTA_RESERVED
+_FUSED_THREADS = 512
 _PASS_THREADS = 256
 _MAX_GRID_X = 65535
 
@@ -109,9 +117,11 @@ def _load():
             lib.acm_synth_fused.restype = ci
             lib.acm_synth_fused.argtypes = [
                 vp, vp, vp, vp, vp,  # k, vals, wrap0, pcm, wrapf
-                ci, ci, ci, ci, ci, ci,  # B, nb, level, rows, T, threads
+                ci, ci, ci, ci, ci, ci, ci,  # B, nb, level, rows, T, span, threads
                 ctypes.c_longlong, vp,  # smem bytes, stream
             ]
+            lib.acm_synth_occupancy.restype = ci
+            lib.acm_synth_occupancy.argtypes = [ci, ci, ctypes.c_longlong]
             lib.acm_synth_pass.restype = ci
             lib.acm_synth_pass.argtypes = [
                 vp, vp, vp, vp, vp, vp, vp,  # k, xin, vals, wrap0, xout, pcm, wrapf
@@ -122,25 +132,99 @@ def _load():
     return _lib
 
 
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 def fused_smem_bytes(level: int, rows: int, T: int) -> int:
-    """Two int32 buffers of cols halo words + (T+1) blocks each."""
+    """Shared memory of one fused CTA: the carry [2*cols-2] and the vals
+    of two tiles (int32), two pass buffers of cols halo words + T blocks
+    (int32), and two staging buffers of T blocks of k (int16)."""
     cols = 1 << level
-    return 8 * (cols + (T + 1) * rows * cols)
+    n = rows * cols
+    words = _up(2 * cols - 2, 4) + _up(2 * T, 4) + 2 * _up(cols + T * n, 4)
+    return 4 * words + 2 * 2 * _up(T * n, 8)
 
 
 def fused_tile(level: int, rows: int, nb: int) -> int:
-    """Blocks per CTA on the fused route, or 0 where it does not apply
-    (level 0, rows == 1, or not even one block plus its predecessor fits
-    shared memory). The last tile of a file is ragged when T does not
-    divide nb (nb is padded to multiples of 8 or 32, not powers of two).
+    """Blocks per tile on the fused route, or 0 where it does not apply
+    (level 0, rows == 1, or one block does not fit shared memory).
+
+    The largest tile for which two CTAs fit on an SM (TILE_SMEM), at most
+    nb; where even one block exceeds that but fits SMEM_LIMIT, a tile of
+    one block and one CTA per SM.
     """
     if level < 1 or rows < 2:
         return 0
-    n = rows << level
-    t = (SMEM_LIMIT // 8 - (1 << level)) // n - 1
-    if t < 1:
-        return 0
-    return min(t, max(nb, 1))
+    if fused_smem_bytes(level, rows, 1) > TILE_SMEM:
+        return 1 if fused_smem_bytes(level, rows, 1) <= SMEM_LIMIT else 0
+    lo, hi = 1, max(nb, 1)
+    while lo < hi:  # largest T in [1, nb] that fits TILE_SMEM
+        mid = (lo + hi + 1) // 2
+        if fused_smem_bytes(level, rows, mid) <= TILE_SMEM:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def fused_plan(level: int, rows: int, B: int, nb: int,
+               slots: int) -> tuple[int, int]:
+    """(T, span) of a fused launch: tiles of T blocks, spans of `span`
+    consecutive blocks of one file per CTA.
+
+    `slots` is the number of CTAs resident on the card at fused_tile's
+    tile (SMs x CTAs per SM). Each file is cut into slots // B spans of
+    equal length (at least one), so the grid of B * ceil(nb / span) CTAs
+    is at most one wave where B <= slots. A span that does not start at
+    block 0 also synthesizes the block before it, so a tile larger than
+    span + 1 blocks is cut to that.
+    """
+    T = fused_tile(level, rows, nb)
+    if not T:
+        return 0, 0
+    span = -(-nb // max(1, min(slots // max(B, 1), nb)))
+    return min(T, span + 1), span
+
+
+_occupancy: dict[tuple[int, str, int], int] = {}
+
+
+def ctas_per_sm(route: str, smem_bytes: int, device: torch.device) -> int:
+    """Resident CTAs per SM of a route ("synth_fused" at this dynamic
+    shared memory, or "synth_pass"), as the CUDA runtime reports it
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    key = (device.index or 0, route, smem_bytes)
+    if key not in _occupancy:
+        lib = _load()
+        fused = route == "synth_fused"
+        with torch.cuda.device(device):
+            n = lib.acm_synth_occupancy(
+                0 if fused else 1,
+                _FUSED_THREADS if fused else _PASS_THREADS, smem_bytes)
+        if n <= 0:
+            raise RuntimeError(f"occupancy query for {route} failed: "
+                               f"cudaError {-n}")
+        _occupancy[key] = n
+    return _occupancy[key]
+
+
+def fused_config(level: int, rows: int, B: int, nb: int,
+                 device: torch.device) -> dict | None:
+    """The fused launch the wrapper makes on this card for [B, nb] blocks
+    (None where the fused route does not apply): tile, span, grid, shared
+    memory per CTA and resident CTAs per SM."""
+    T0 = fused_tile(level, rows, nb)
+    if not T0 or not B or not nb:
+        return None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    slots = sms * ctas_per_sm("synth_fused",
+                              fused_smem_bytes(level, rows, T0), device)
+    T, span = fused_plan(level, rows, B, nb, slots)
+    smem = fused_smem_bytes(level, rows, T)
+    return {"T": T, "span": span, "grid": (-(-nb // span), B),
+            "threads": _FUSED_THREADS, "smem_bytes": smem,
+            "ctas_per_sm": ctas_per_sm("synth_fused", smem, device)}
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -196,12 +280,13 @@ def synth_pcm_batch(
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        T = fused_tile(level, rows, nb)
-        if T:
+        cfg = fused_config(level, rows, B, nb, dev)
+        if cfg:
             rc = lib.acm_synth_fused(
                 k.data_ptr(), vals.data_ptr(), wrap0.data_ptr(),
-                pcm.data_ptr(), wrapf.data_ptr(), B, nb, level, rows, T,
-                _FUSED_THREADS, fused_smem_bytes(level, rows, T), stream)
+                pcm.data_ptr(), wrapf.data_ptr(), B, nb, level, rows,
+                cfg["T"], cfg["span"], _FUSED_THREADS, cfg["smem_bytes"],
+                stream)
             if rc:
                 raise RuntimeError(f"synth_fused_kernel launch failed: "
                                    f"cudaError {rc}")

@@ -23,6 +23,23 @@ def _card() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def _inputs(dev, level, rows, B, nb, k_offset=0):
+    """Random k, vals, wrap0 on the card; k starts k_offset int16 past an
+    allocation's start (so 2 * k_offset bytes off its alignment)."""
+    rng = np.random.default_rng(level * 131 + rows)
+    cols = 1 << level
+    kh = torch.from_numpy(rng.integers(-2000, 2000, (B, nb, rows, cols))
+                          .astype(np.int16))
+    k = torch.empty(k_offset + kh.numel(), dtype=torch.int16, device=dev)
+    k = k[k_offset:].view(B, nb, rows, cols)
+    k.copy_(kh)
+    v = torch.from_numpy(rng.integers(0, 1 << 16, (B, nb))
+                         .astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.integers(-500, 500, (B, max(2 * cols - 2, 1)))
+                         .astype(np.int32)).to(dev)
+    return k, v, w
+
+
 @pytest.mark.parametrize("level,rows,B,nb,route", [
     (7, 16, 3, 41, "synth_fused"), (4, 40, 2, 37, "synth_fused"),
     (10, 4, 2, 9, "synth_fused"), (5, 33, 2, 5, "synth_fused"),
@@ -30,17 +47,17 @@ def _card() -> torch.device:
     (0, 2048, 2, 5, "synth_pass"), (10, 1, 2, 6, "synth_pass"),
     (14, 1, 1, 4, "synth_pass"), (15, 16, 1, 3, "synth_pass"),
     (2, 1, 3, 7, "synth_pass"),
+    # fused edges: many files; nb below one tile; n % 8 != 0 (copies of
+    # k narrower than 16 bytes); spans of several tiles cut mid-file; a
+    # tile of one block with one CTA per SM
+    (7, 16, 40, 13, "synth_fused"), (7, 16, 1, 3, "synth_fused"),
+    (1, 3, 2, 9, "synth_fused"), (2, 3, 3, 7, "synth_fused"),
+    (7, 16, 100, 20, "synth_fused"), (4, 40, 200, 40, "synth_fused"),
+    (12, 2, 1, 5, "synth_fused"),
 ])
 def test_kernel_matches_plain(level, rows, B, nb, route):
     dev = _card()
-    rng = np.random.default_rng(level * 131 + rows)
-    cols = 1 << level
-    k = torch.from_numpy(rng.integers(-2000, 2000, (B, nb, rows, cols))
-                         .astype(np.int16)).to(dev)
-    v = torch.from_numpy(rng.integers(0, 1 << 16, (B, nb))
-                         .astype(np.int32)).to(dev)
-    w = torch.from_numpy(rng.integers(-500, 500, (B, max(2 * cols - 2, 1)))
-                         .astype(np.int32)).to(dev)
+    k, v, w = _inputs(dev, level, rows, B, nb)
     sc.reset_launches()
     got_pcm, got_w = sc.synth_pcm_batch(k, v, w, level=level, rows=rows)
     torch.cuda.synchronize()
@@ -58,3 +75,31 @@ def test_kernel_rejects_bad_input():
     w = torch.zeros((1, 14), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         sc.synth_pcm_batch(k, v, w, level=3, rows=4)
+
+
+@pytest.mark.parametrize("k_offset", [1, 2, 4])
+def test_fused_kernel_unaligned_k(k_offset):
+    """k 2, 4 or 8 bytes past 16-byte alignment: the kernel stages it with
+    narrower copies and stays bit-equal."""
+    dev = _card()
+    k, v, w = _inputs(dev, 7, 16, 3, 9, k_offset=k_offset)
+    assert k.data_ptr() % 16 == 2 * k_offset
+    sc.reset_launches()
+    got_pcm, got_w = sc.synth_pcm_batch(k, v, w, level=7, rows=16)
+    torch.cuda.synchronize()
+    assert sc.launches["synth_fused"] == 1
+    want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=7, rows=16)
+    assert torch.equal(got_pcm, want_pcm)
+    assert torch.equal(got_w, want_w)
+
+
+def test_fused_config_two_ctas_per_sm():
+    """The main path's fused shapes get at least two resident CTAs per SM
+    and a grid of at most one wave."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for level, rows, B, nb in [(7, 16, 25, 320), (4, 40, 15, 1216),
+                               (10, 4, 10, 160)]:
+        cfg = sc.fused_config(level, rows, B, nb, dev)
+        assert cfg["ctas_per_sm"] >= 2, (level, rows, cfg)
+        assert cfg["grid"][0] * cfg["grid"][1] <= sms * cfg["ctas_per_sm"]

@@ -114,76 +114,93 @@ def _to_pcm(u: torch.Tensor, level: int) -> torch.Tensor:
     return ((signed >> level) & 0xFFFF).to(torch.int32).to(torch.int16)
 
 
-def _fused_model(k, vals, wrap0, *, level, rows, T):
+def _fir(a, m, c, f, sh, bias):
+    """One FIR step on uint32 words held as int64 & M32."""
+    t = (a + c) & _M32
+    y = (2 * m + torch.where((f >> sh) & 1 == 1, (-t) & _M32, t)) & _M32
+    if bias:
+        y = (y + ((f & ((1 << sh) - 1)) == 0).to(torch.int64)) & _M32
+    return y
+
+
+def _fused_model(k, vals, wrap0, *, level, rows, T, span):
     """synth_fused_kernel's schedule in torch, uint32 math as int64 & M32.
 
-    One "CTA" per (file, tile of T blocks): the tile plus the block before
-    it, re-synthesized from a zero halo (tile 0 takes wrap0's pass-p
-    segment as its halo instead), a flat stencil per pass between two
-    buffers of H = cols halo words + (T+1)*n words, the ragged last tile
-    masked, wrap_f written by the CTA that holds the file's last block.
+    One "CTA" per (file, span of `span` blocks). The span at block 0
+    starts from wrap0; any other span first synthesizes block blk0-1 from
+    a zero carry and discards its PCM. The CTA walks its blocks in tiles
+    of T, in order, carrying each pass's last 2s inputs in an array of
+    2*cols-2 words in wrap layout (pass p at offset sum of 2*s_q, q < p).
+    Pass 0 dequantizes the tile's staged k with the tile's vals, one block
+    at a time; every pass reads its halo f in [-2s, 0) from the carry. The
+    CTA whose span ends at block nb writes wrap_f.
     """
     B, nb = k.shape[:2]
     cols = 1 << level
     n = rows * cols
-    H = cols
-    size = H + (T + 1) * n
-    x = (k.to(torch.int64) * vals.to(torch.int64)[:, :, None, None]
-         ).reshape(B, nb * n) & _M32
+    wlen = 2 * cols - 2
+    kk = k.to(torch.int64).reshape(B, nb * n)
+    vv = vals.to(torch.int64)
     w0 = wrap0.to(torch.int64) & _M32
     pcm = torch.empty((B, nb, n), dtype=torch.int16)
-    wrapf = torch.empty((B, 2 * cols - 2), dtype=torch.int64)
+    wrapf = torch.empty((B, wlen), dtype=torch.int64)
     for b in range(B):
-        for t in range(-(-nb // T)):
-            blk0 = t * T
-            Tt = min(T, nb - blk0)
-            first, last = t == 0, blk0 + Tt == nb
-            start = H + n if first else H
-            end = H + (1 + Tt) * n
-            src = blk0 if first else blk0 - 1
-            buf = torch.zeros(size, dtype=torch.int64)
-            buf[start:end] = x[b, src * n : src * n + end - start]
-            f = torch.arange(start, end) - H
-            off = 0
-            for p in range(level):
-                sh = level - 1 - p
-                s = 1 << sh
-                if first:
-                    buf[H + n - 2 * s : H + n] = w0[b, off : off + 2 * s]
-                if last:
-                    wrapf[b, off : off + 2 * s] = buf[end - 2 * s : end]
-                a = buf[start:end]
-                m = buf[start - s : end - s]
-                c = buf[start - 2 * s : end - 2 * s]
-                tt = (a + c) & _M32
-                y = (2 * m + torch.where((f >> sh) & 1 == 1,
-                                         (-tt) & _M32, tt)) & _M32
-                if p == 0:
-                    y = (y + ((f & (s - 1)) == 0).to(torch.int64)) & _M32
-                nxt = torch.zeros(size, dtype=torch.int64)
-                nxt[start:end] = y
-                buf = nxt
-                off += 2 * s
-            pcm[b, blk0 : blk0 + Tt] = _to_pcm(buf[H + n : end],
-                                               level).reshape(Tt, n)
+        for blk0 in range(0, nb, span):
+            blk_end = min(nb, blk0 + span)
+            first = blk0 - 1 if blk0 else 0
+            carry = w0[b].clone() if blk0 == 0 else torch.zeros(
+                wlen, dtype=torch.int64)
+            for tblk in range(first, blk_end, T):
+                Tt = min(T, blk_end - tblk)
+                N = Tt * n
+                stage = kk[b, tblk * n : tblk * n + N]  # the prefetched k
+                tv = vv[b, tblk : tblk + Tt]  # the tile's vals
+                x = torch.cat([(stage[i * n : (i + 1) * n] * tv[i]) & _M32
+                               for i in range(Tt)])
+                f = torch.arange(N)
+                off = 0
+                for p in range(level):
+                    sh = level - 1 - p
+                    s = 1 << sh
+                    src = torch.cat([carry[off : off + 2 * s], x])
+                    y = _fir(src[2 * s :], src[s : s + N], src[:N], f, sh,
+                             p == 0)
+                    carry[off : off + 2 * s] = x[N - 2 * s :]
+                    x = y
+                    off += 2 * s
+                skip = max(blk0 - tblk, 0) * n  # the re-synthesized block
+                out = _to_pcm(x, level)
+                pcm.reshape(B, nb * n)[b, tblk * n + skip : tblk * n + N] = (
+                    out[skip:])
+            if blk_end == nb:
+                wrapf[b] = carry
     wrapf = torch.where(wrapf >= 1 << 31, wrapf - (1 << 32), wrapf)
     return pcm, wrapf.to(torch.int32)
 
 
-@pytest.mark.parametrize("level,rows,B,nb,T", [
-    (7, 16, 2, 7, 3),  # ragged last tile
-    (7, 16, 1, 9, None),  # the kernel's own tile size
-    (4, 40, 2, 5, 2), (10, 4, 1, 4, 1), (5, 33, 2, 3, 2), (9, 3, 1, 5, 4),
-    (1, 2, 2, 6, 4), (3, 2, 1, 8, 8), (12, 2, 1, 3, None),
+#: (level, rows, B, nb, T, span); None takes fused_plan's choice for a
+#: card with 264 resident CTAs (132 SMs x 2)
+@pytest.mark.parametrize("level,rows,B,nb,T,span", [
+    (7, 16, 2, 7, 3, 5),  # span ends mid-file, ragged last tile
+    (7, 16, 1, 9, None, None),  # the plan: spans of one block
+    (7, 16, 25, 32, None, None),  # the plan at the main path's B
+    (4, 40, 2, 5, 2, 3), (4, 40, 3, 11, 4, 4),  # spans do not divide nb
+    (10, 4, 1, 4, 1, 4), (10, 4, 3, 10, None, None),
+    (5, 33, 2, 3, 2, 2), (9, 3, 1, 5, 4, 2),
+    (1, 2, 2, 6, 4, 6), (1, 2, 2, 3, 8, 3),  # level 1; nb < T
+    (1, 3, 2, 9, 3, 4), (2, 3, 2, 7, None, None),  # n % 8 != 0
+    (3, 2, 1, 8, 8, 8), (12, 2, 1, 3, None, None),
+    (7, 16, 3, 5, 2, 1),  # every span one block
 ])
-def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
+def test_fused_schedule_model_matches_plain(level, rows, B, nb, T, span):
     if T is None:
-        T = sc.fused_tile(level, rows, nb)
-    assert T >= 1
+        T, span = sc.fused_plan(level, rows, B, nb, slots=264)
+    assert T >= 1 and span >= 1
     k, v, w = _inputs(level, rows, B, nb, seed=level * 7 + nb)
     k, v, w = torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(w)
     want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=level, rows=rows)
-    got_pcm, got_w = _fused_model(k, v, w, level=level, rows=rows, T=T)
+    got_pcm, got_w = _fused_model(k, v, w, level=level, rows=rows, T=T,
+                                  span=span)
     assert torch.equal(want_pcm, got_pcm)
     assert torch.equal(want_w, got_w)
 
@@ -191,18 +208,43 @@ def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
 @pytest.mark.parametrize("level,rows,nb,route", [
     (7, 16, 320, "fused"), (4, 40, 1216, "fused"), (10, 4, 160, "fused"),
     (5, 33, 64, "fused"), (9, 3, 8, "fused"), (12, 2, 4, "fused"),
+    (11, 3, 4, "fused"), (1, 3, 5, "fused"),
     (0, 2048, 416, "pass"), (10, 1, 8, "pass"), (14, 1, 4, "pass"),
     (15, 16, 2, "pass"), (13, 2, 4, "pass"),
 ])
 def test_fused_tile_predicate(level, rows, nb, route):
-    """Fused route iff level >= 1, rows >= 2 and one block plus its
-    predecessor fit shared memory; the tile is the largest that fits."""
+    """Fused route iff level >= 1, rows >= 2 and one block fits shared
+    memory; the tile is the largest for which two CTAs fit on an SM, or
+    one block where only one CTA fits."""
     T = sc.fused_tile(level, rows, nb)
     assert (T >= 1) == (route == "fused")
     if T:
-        assert sc.fused_smem_bytes(level, rows, T) <= sc.SMEM_LIMIT
-        assert T == nb or sc.fused_smem_bytes(level, rows,
-                                              T + 1) > sc.SMEM_LIMIT
+        smem = sc.fused_smem_bytes(level, rows, T)
+        assert smem <= sc.SMEM_LIMIT
+        if smem > sc.TILE_SMEM:
+            assert T == 1
+        else:
+            assert T == nb or sc.fused_smem_bytes(level, rows,
+                                                  T + 1) > sc.TILE_SMEM
+
+
+@pytest.mark.parametrize("level,rows,B,nb,slots", [
+    (7, 16, 25, 320, 264), (4, 40, 15, 1216, 264), (10, 4, 10, 160, 264),
+    (7, 16, 400, 13, 264), (7, 16, 1, 3, 264), (4, 40, 7, 100, 30),
+])
+def test_fused_plan_fills_one_wave(level, rows, B, nb, slots):
+    """Spans cut each file evenly; the grid is at most one wave of
+    resident CTAs where there are no more files than slots, and one CTA
+    per file otherwise; the tile is no longer than a span plus the block
+    re-synthesized before it."""
+    T, span = sc.fused_plan(level, rows, B, nb, slots)
+    grid = B * -(-nb // span)
+    assert 1 <= T <= min(sc.fused_tile(level, rows, nb), span + 1)
+    if B <= slots:
+        assert grid <= slots
+        assert span == 1 or B * -(-nb // (span - 1)) > slots
+    else:
+        assert span == nb
 
 
 def test_kernel_wrapper_takes_plain_version_on_cpu():
