@@ -38,8 +38,15 @@
 //     cp.async (16 bytes a copy where n % 8 == 0 and k is 16-byte aligned,
 //     else 8, 4 or 2) while the current tile's passes run. Pass 0 reads k
 //     from staging and multiplies by the tile's vals (no dequantize sweep).
-//   - Each pass is a flat stencil between two shared-memory buffers whose
-//     halo holds that pass's carry; the last buffer is stored as PCM.
+//   - The passes walk strips (see Strips below): a thread takes one
+//     residue r of the stride s and a run of consecutive q of f = q*s + r,
+//     keeps x[q-2] and x[q-1] in registers, and so reads and writes each
+//     element once per pass, in place, with the sign fixed per unrolled
+//     step and the pass-0 bias per strip. Runs have odd length, which keeps
+//     a warp's 32 lanes on 32 banks for every s < 32 without padding.
+//   - The last pass (s = 1) takes 8 consecutive elements a thread from two
+//     16-byte shared loads and writes them as one 16-byte PCM store (where
+//     the tile's PCM is 16-byte aligned), so there is no store sweep.
 // * synth_pass_kernel — every other geometry (rows == 1, where the re-synth
 //   is not exact; tiles too large for shared memory; level 0). One launch
 //   per pass over each file's whole flat stream in device memory, the halo
@@ -53,8 +60,9 @@
 // 2*level+2 int32 operations a sample (dequantize, two adds per pass, the
 // shift). On an H100 (3.35 TB/s, 132 SMs x 64 int32 lanes x 1.98 GHz) the
 // bytes bound is the larger at 7/16 and 4/40 and the operations bound at
-// 10/4. What the kernel pays beyond either is shared-memory traffic (three
-// loads and a store per element per pass) and index arithmetic.
+// 10/4. Beyond either, the kernel pays a shared-memory load and store per
+// element per pass, the address arithmetic of the strips, and 2*level-2
+// barriers per tile.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -117,11 +125,55 @@ __device__ __forceinline__ void stage_tile(const int16_t* __restrict__ src,
   cp_async_commit();
 }
 
-// Shared memory (words): carry [up(2*cols-2, 4)], tile vals [up(2*T, 4)],
-// pass buffers X0, X1 [up(H + T*n, 4)] each with H = cols halo words
-// before the tile (X[H + e] holds element e of the tile), then two
-// staging buffers of up(T*n, 8) int16. synth_cuda.fused_smem_bytes
-// mirrors this.
+// Walk one strip of a pass, q ascending in [q, q1): element q*s + r of
+// the pass is y[q] = +-(x[q] + x[q-2]) + 2*x[q-1] + bias, + for even q.
+// x2, x1 hold x[q-2], x[q-1] on entry and the strip's last two inputs on
+// exit. Unrolled by two so that each step's sign is fixed; ld(q) and
+// st(q, y) address the strip.
+template <class Ld, class St>
+__device__ __forceinline__ void walk(int q, int q1, uint32_t& x2, uint32_t& x1,
+                                     uint32_t bias, Ld ld, St st) {
+  if (q < q1 && (q & 1)) {
+    const uint32_t a = ld(q);
+    st(q, 2u * x1 - (a + x2) + bias);
+    x2 = x1;
+    x1 = a;
+    ++q;
+  }
+  for (; q + 1 < q1; q += 2) {
+    const uint32_t a0 = ld(q), a1 = ld(q + 1);
+    st(q, a0 + x2 + 2u * x1 + bias);
+    st(q + 1, 2u * a0 - (a1 + x1) + bias);
+    x2 = a0;
+    x1 = a1;
+  }
+  if (q < q1) {
+    const uint32_t a = ld(q);
+    st(q, a + x2 + 2u * x1 + bias);
+    x2 = x1;
+    x1 = a;
+  }
+}
+
+// A pass of stride s = 1 << sh over N elements is cut into strips: item
+// (r, c) takes residue r and the run q in [c*Q, min((c+1)*Q, N/s)). Where
+// s <= nt there are nt/s runs per residue and each thread has one item,
+// r = tid % s and c = tid / s; Q is odd, so for s < 32 the lanes of a warp
+// land on 32 different banks at every step, and at least 3, so that a run
+// past q = 0 finds x[q0-2] in the pass's input. Where s >= nt each thread
+// walks whole residues r = tid, tid + nt, ... (one run each).
+struct Strips {
+  int s, sh, Qtot, Q, C;
+  __device__ Strips(int sh_, int N, int nt) : s(1 << sh_), sh(sh_), Qtot(N >> sh_) {
+    C = s < nt ? nt >> sh : 1;
+    Q = max(((Qtot + C - 1) / C) | 1, 3);
+  }
+};
+
+// Shared memory (words): carry [up(2*cols-2, 4)], the vals of two tiles
+// [up(2*T, 4)], the pass buffer X [up(T*n, 8)] (element e of the tile at
+// X[e], passes 1.. in place), then two staging buffers of up(T*n, 8)
+// int16. synth_cuda.fused_smem_bytes mirrors this.
 __global__ void __launch_bounds__(512, 2)
 synth_fused_kernel(const int16_t* __restrict__ k,
                    const int32_t* __restrict__ vals,
@@ -131,18 +183,16 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   extern __shared__ __align__(16) uint32_t smem[];
   const int cols = 1 << level;
   const int n = rows << level;
-  const int H = cols;
   const int wlen = 2 * cols - 2;
-  const int SX = up(H + T * n, 4);
   const int SN = up(T * n, 8);
   uint32_t* carry = smem;
   int32_t* tv = (int32_t*)(carry + up(wlen, 4));
-  uint32_t* X0 = (uint32_t*)(tv + up(2 * T, 4));
-  uint32_t* X1 = X0 + SX;
-  int16_t* stg = (int16_t*)(X1 + SX);
+  uint32_t* X = (uint32_t*)(tv + up(2 * T, 4));
+  int16_t* stg = (int16_t*)(X + SN);
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int lane = tid & 31;
   const int b = blockIdx.y;
   const int blk0 = blockIdx.x * span;
   const int blk_end = min(nb, blk0 + span);
@@ -150,93 +200,184 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   const int ntiles = (blk_end - first + T - 1) / T;
   const int16_t* kf = k + (int64_t)b * nb * n;
   const int32_t* vf = vals + (int64_t)b * nb;
+  const int R2 = 2 * rows;  // pass-0 steps per block (n = R2 * s0)
 
   const uintptr_t ka = (uintptr_t)k;
   const int width = (n % 8 == 0 && ka % 16 == 0) ? 16
                     : (n % 4 == 0 && ka % 8 == 0) ? 8
                     : (ka % 4 == 0) ? 4 : 2;  // n is even: level >= 1
+  const bool pcm16 = ((uintptr_t)pcm % 16 == 0);
 
   const int32_t* w0 = wrap0 + (int64_t)b * wlen;
   for (int i = tid; i < wlen; i += nt) carry[i] = blk0 ? 0u : (uint32_t)w0[i];
   stage_tile(kf + (int64_t)first * n, vf + first, stg, tv, min(T, blk_end - first), n,
              width);
+  __syncthreads();  // the carry
 
   for (int t = 0; t < ntiles; ++t) {
     const int tblk = first + t * T;
     const int Tt = min(T, blk_end - tblk);
     const int N = Tt * n;
     const int cur = t & 1;
+    const int16_t* sk = stg + cur * SN;
+    const int32_t* sv = tv + cur * T;
+
+    // pass 0 reads k * val from staging and writes X; an item at q0 == 0
+    // takes its halo from the carry, read here, before the barrier after
+    // which the strip ending at N/s writes the new carry
+    const Strips P0(level - 1, N, nt);
+    const int r0 = tid & (P0.s - 1);
+    const int q00 = P0.C > 1 ? (tid >> P0.sh) * P0.Q : 0;
+    uint32_t h2 = 0, h1 = 0;
+    if (P0.C > 1 && q00 == 0) {
+      h2 = carry[r0];
+      h1 = carry[P0.s + r0];
+    }
     cp_async_wait_all();
-    __syncthreads();  // tile t staged; tile t-1 finished with every buffer
+    __syncthreads();  // tile t staged; tile t-1 finished with X
     if (t + 1 < ntiles) {
       const int nblk = tblk + T;
       stage_tile(kf + (int64_t)nblk * n, vf + nblk, stg + (cur ^ 1) * SN,
                  tv + (cur ^ 1) * T, min(T, blk_end - nblk), n, width);
     }
-    const int16_t* sk = stg + cur * SN;
-    const int32_t* sv = tv + cur * T;
 
-    // pass 0, dequantizing from staging; halo f in [-2s, 0) from the carry
     {
-      const int sh = level - 1;
-      const int s = 1 << sh;
-      int bi = tid / n, j = tid - bi * n;  // element e = bi*n + j
-      const int dbi = nt / n, dj = nt - dbi * n;
-      for (int e = tid; e < N; e += nt) {
-        const uint32_t v = (uint32_t)sv[bi];
-        const uint32_t a = (uint32_t)(int32_t)sk[e] * v;
-        const uint32_t m = e >= s ? (uint32_t)(int32_t)sk[e - s] *
-                                        (j >= s ? v : (uint32_t)sv[bi - 1])
-                                  : carry[s + e];
-        const uint32_t c = e >= 2 * s ? (uint32_t)(int32_t)sk[e - 2 * s] *
-                                            (j >= 2 * s ? v : (uint32_t)sv[bi - 1])
-                                      : carry[e];
-        X0[H + e] = fir(a, m, c, e, sh, true);
-        j += dj;
-        bi += dbi;
-        if (j >= n) {
-          j -= n;
+      const int s = P0.s;
+      auto deq = [&](int q, int r) {  // a halo word, from staging
+        return (uint32_t)(int32_t)sk[(q << P0.sh) + r] * (uint32_t)sv[q / R2];
+      };
+      for (int it = tid; it < (P0.C > 1 ? nt : s); it += nt) {
+        const int r = it & (s - 1);
+        const int q0 = P0.C > 1 ? q00 : 0;
+        const int q1 = min(q0 + (P0.C > 1 ? P0.Q : P0.Qtot), P0.Qtot);
+        if (q0 >= q1) continue;
+        uint32_t x2, x1;
+        if (q0 == 0) {
+          x2 = P0.C > 1 ? h2 : carry[r];
+          x1 = P0.C > 1 ? h1 : carry[s + r];
+        } else {
+          x2 = deq(q0 - 2, r);
+          x1 = deq(q0 - 1, r);
+        }
+        const uint32_t bias = r == 0;
+        const int16_t* kc = sk + r;
+        uint32_t* xc = X + r;
+        int q = q0, bi = q0 / R2;
+        while (q < q1) {  // one run of constant val per block
+          const int qe = min(q1, (bi + 1) * R2);
+          const uint32_t v = (uint32_t)sv[bi];
+          walk(q, qe, x2, x1, bias,
+               [&](int j) { return (uint32_t)(int32_t)kc[j << P0.sh] * v; },
+               [&](int j, uint32_t y) { xc[j << P0.sh] = y; });
+          q = qe;
           ++bi;
         }
-      }
-      if (level > 1) {  // pass 1's halo
-        for (int i = tid; i < s; i += nt) X0[H - s + i] = carry[2 * s + i];
+        if (q1 == P0.Qtot) {
+          carry[r] = x2;
+          carry[s + r] = x1;
+        }
       }
     }
     __syncthreads();
 
-    uint32_t* in = X0;
-    uint32_t* out = X1;
+    // passes 1 .. level-2, in place on X
     int off = cols;  // pass 1's carry offset (pass 0's segment is cols long)
-    for (int p = 1; p < level; ++p) {
-      const int sh = level - 1 - p;
-      const int s = 1 << sh;
-      for (int e = tid; e < N; e += nt) {
-        out[H + e] = fir(in[H + e], in[H + e - s], in[H + e - 2 * s], e, sh, false);
-      }
-      for (int i = tid; i < 2 * s; i += nt) carry[off + i] = in[H + N - 2 * s + i];
-      if (p == 1) {  // pass 0's carry: its last inputs, still in staging
-        for (int i = tid; i < cols; i += nt) {
-          carry[i] = (uint32_t)(int32_t)sk[N - cols + i] * (uint32_t)sv[Tt - 1];
+    for (int p = 1; p + 1 < level; ++p) {
+      const Strips P(level - 1 - p, N, nt);
+      const int s = P.s;
+      if (P.C > 1) {
+        // one item per thread; its halo is read before anyone writes
+        const int r = tid & (s - 1);
+        const int q0 = (tid >> P.sh) * P.Q;
+        const int q1 = min(q0 + P.Q, P.Qtot);
+        uint32_t x2 = 0, x1 = 0;
+        if (q0 < q1) {
+          x2 = q0 ? X[((q0 - 2) << P.sh) + r] : carry[off + r];
+          x1 = q0 ? X[((q0 - 1) << P.sh) + r] : carry[off + s + r];
+        }
+        __syncthreads();
+        if (q0 < q1) {
+          uint32_t* xc = X + r;
+          walk(q0, q1, x2, x1, 0u, [&](int j) { return xc[j << P.sh]; },
+               [&](int j, uint32_t y) { xc[j << P.sh] = y; });
+          if (q1 == P.Qtot) {
+            carry[off + r] = x2;
+            carry[off + s + r] = x1;
+          }
+        }
+      } else {
+        for (int r = tid; r < s; r += nt) {
+          uint32_t x2 = carry[off + r], x1 = carry[off + s + r];
+          uint32_t* xc = X + r;
+          walk(0, P.Qtot, x2, x1, 0u, [&](int j) { return xc[j << P.sh]; },
+               [&](int j, uint32_t y) { xc[j << P.sh] = y; });
+          carry[off + r] = x2;
+          carry[off + s + r] = x1;
         }
       }
-      if (p + 1 < level) {  // pass p+1's halo
-        for (int i = tid; i < s; i += nt) out[H - s + i] = carry[off + 2 * s + i];
-      }
       __syncthreads();
-      uint32_t* tmp = in;
-      in = out;
-      out = tmp;
       off += 2 * s;
     }
 
+    // the last pass (s = 1; at level 1 pass 0 is the last and already ran):
+    // each thread takes 8 consecutive elements, reads them as two 16-byte
+    // loads (the half order swapped in every other group of 4 lanes, so a
+    // quarter warp covers all 32 banks), takes x[8g-2], x[8g-1] from the
+    // lane before it, and writes 8 samples of PCM in one 16-byte store
+    const bool fir_last = level > 1;
     const int skip = tblk < blk0 ? n : 0;
-    int16_t* pb = pcm + ((int64_t)b * nb + tblk) * n;
-    for (int e = skip + tid; e < N; e += nt) pb[e] = to_pcm(in[H + e], level);
-    if (level == 1) {
-      for (int i = tid; i < 2; i += nt) {
-        carry[i] = (uint32_t)(int32_t)sk[N - 2 + i] * (uint32_t)sv[Tt - 1];
+    const int64_t e0 = ((int64_t)b * nb + tblk) * n;  // PCM index of element 0
+    const bool vec = pcm16 && (e0 & 7) == 0;
+    const int NG = (N + 7) >> 3;
+    for (int g0 = tid - lane; g0 < NG; g0 += nt) {
+      const int g = g0 + lane;
+      uint32_t v[8];
+      if (g < NG) {
+        const uint4* p4 = (const uint4*)(X + 8 * g);
+        const int sw = (lane >> 2) & 1;
+        const uint4 u = p4[sw], w = p4[sw ^ 1];
+        const uint4 lo = sw ? w : u, hi = sw ? u : w;
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = 0u;
       }
+      if (fir_last) {
+        uint32_t c = __shfl_up_sync(0xffffffffu, v[6], 1);
+        uint32_t m = __shfl_up_sync(0xffffffffu, v[7], 1);
+        if (lane == 0 && g < NG) {
+          c = g ? X[8 * g - 2] : carry[wlen - 2];
+          m = g ? X[8 * g - 1] : carry[wlen - 1];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; i += 2) {
+          const uint32_t a0 = v[i], a1 = v[i + 1];
+          v[i] = a0 + c + 2u * m;
+          v[i + 1] = 2u * a0 - (a1 + m);
+          c = a0;
+          m = a1;
+        }
+      }
+      if (g >= NG) continue;
+      const int e = 8 * g;
+      if (vec && e >= skip && e + 8 <= N) {
+        uint4 o;
+        o.x = __byte_perm((int32_t)v[0] >> level, (int32_t)v[1] >> level, 0x5410);
+        o.y = __byte_perm((int32_t)v[2] >> level, (int32_t)v[3] >> level, 0x5410);
+        o.z = __byte_perm((int32_t)v[4] >> level, (int32_t)v[5] >> level, 0x5410);
+        o.w = __byte_perm((int32_t)v[6] >> level, (int32_t)v[7] >> level, 0x5410);
+        *(uint4*)(pcm + e0 + e) = o;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (e + i >= skip && e + i < N) pcm[e0 + e + i] = to_pcm(v[i], level);
+        }
+      }
+    }
+    if (fir_last && tid == 0) {  // after thread 0 read the old one above
+      carry[wlen - 2] = X[N - 2];
+      carry[wlen - 1] = X[N - 1];
     }
   }
 

@@ -17,11 +17,13 @@ pass, the shift). On an H100 that makes the bytes bound the larger at
 `bound`). Two routes:
 
 - fused (`synth_fused_kernel`): rows >= 2, level >= 1, and a tile of one
-  block fits shared memory. One launch per call. Each CTA walks a span of
-  consecutive blocks of one file in tiles of T blocks, carrying the halo
-  between tiles; a span that does not start at block 0 first
-  re-synthesizes the block before it from a zero carry (exact for
-  rows >= 2, see synth_torch.carry_of_block). `fused_plan` sizes the tile
+  block leaves room for two CTAs per SM. One launch per call. Each CTA
+  walks a span of consecutive blocks of one file in tiles of T blocks,
+  carrying the halo between tiles; a span that does not start at block 0
+  first re-synthesizes the block before it from a zero carry (exact for
+  rows >= 2, see synth_torch.carry_of_block). k is prefetched into shared
+  memory while the previous tile's passes run; each pass walks strips in
+  place; the last writes 16-byte PCM stores. `fused_plan` sizes the tile
   for two resident CTAs per SM and the spans for about one wave of them.
 - per pass (`synth_pass_kernel`): rows == 1, tiles too large for shared
   memory, and level 0. One launch per pass (one for level 0) over each
@@ -138,26 +140,20 @@ def _up(x: int, m: int) -> int:
 
 def fused_smem_bytes(level: int, rows: int, T: int) -> int:
     """Shared memory of one fused CTA: the carry [2*cols-2] and the vals
-    of two tiles (int32), two pass buffers of cols halo words + T blocks
-    (int32), and two staging buffers of T blocks of k (int16)."""
+    of two tiles (int32), one pass buffer of T blocks (int32), and two
+    staging buffers of T blocks of k (int16)."""
     cols = 1 << level
-    n = rows * cols
-    words = _up(2 * cols - 2, 4) + _up(2 * T, 4) + 2 * _up(cols + T * n, 4)
-    return 4 * words + 2 * 2 * _up(T * n, 8)
+    tile = _up(T * rows * cols, 8)
+    return 4 * (_up(2 * cols - 2, 4) + _up(2 * T, 4) + tile) + 2 * 2 * tile
 
 
 def fused_tile(level: int, rows: int, nb: int) -> int:
-    """Blocks per tile on the fused route, or 0 where it does not apply
-    (level 0, rows == 1, or one block does not fit shared memory).
-
-    The largest tile for which two CTAs fit on an SM (TILE_SMEM), at most
-    nb; where even one block exceeds that but fits SMEM_LIMIT, a tile of
-    one block and one CTA per SM.
+    """Blocks per tile on the fused route: the largest tile, at most nb,
+    for which two CTAs fit on an SM (TILE_SMEM); 0 where the route does
+    not apply (level 0, rows == 1, or not even one block fits).
     """
-    if level < 1 or rows < 2:
+    if level < 1 or rows < 2 or fused_smem_bytes(level, rows, 1) > TILE_SMEM:
         return 0
-    if fused_smem_bytes(level, rows, 1) > TILE_SMEM:
-        return 1 if fused_smem_bytes(level, rows, 1) <= SMEM_LIMIT else 0
     lo, hi = 1, max(nb, 1)
     while lo < hi:  # largest T in [1, nb] that fits TILE_SMEM
         mid = (lo + hi + 1) // 2

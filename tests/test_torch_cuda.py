@@ -49,7 +49,7 @@ def _inputs(dev, level, rows, B, nb, k_offset=0):
     (2, 1, 3, 7, "synth_pass"),
     # fused edges: many files; nb below one tile; n % 8 != 0 (copies of
     # k narrower than 16 bytes); spans of several tiles cut mid-file; a
-    # tile of one block with one CTA per SM
+    # tile of one block
     (7, 16, 40, 13, "synth_fused"), (7, 16, 1, 3, "synth_fused"),
     (1, 3, 2, 9, "synth_fused"), (2, 3, 3, 7, "synth_fused"),
     (7, 16, 100, 20, "synth_fused"), (4, 40, 200, 40, "synth_fused"),

@@ -114,35 +114,97 @@ def _to_pcm(u: torch.Tensor, level: int) -> torch.Tensor:
     return ((signed >> level) & 0xFFFF).to(torch.int32).to(torch.int16)
 
 
-def _fir(a, m, c, f, sh, bias):
-    """One FIR step on uint32 words held as int64 & M32."""
-    t = (a + c) & _M32
-    y = (2 * m + torch.where((f >> sh) & 1 == 1, (-t) & _M32, t)) & _M32
-    if bias:
-        y = (y + ((f & ((1 << sh) - 1)) == 0).to(torch.int64)) & _M32
-    return y
+def _strips(sh, N, nt):
+    """(s, Qtot, Q, C) of a pass of stride s = 1 << sh over N elements cut
+    into strips for nt threads: C runs of Q steps per residue, Q odd and
+    at least 3 (so a run past q = 0 finds its halo in the input)."""
+    s = 1 << sh
+    Qtot = N >> sh
+    C = nt >> sh if s < nt else 1
+    return s, Qtot, max(((Qtot + C - 1) // C) | 1, 3), C
 
 
-def _fused_model(k, vals, wrap0, *, level, rows, T, span):
+def _strip_pass(src, dst, carry, off, *, sh, N, nt, bias):
+    """One strip-walked pass: items (r, c) step through q in lockstep.
+
+    src(q, r) is the pass's input at element q*s + r, dst the buffer the
+    output goes to (the pass-0 input is staging, later passes work in
+    place). An item at q0 == 0 takes its halo from the carry, any other
+    from the input; the item whose run ends at N/s writes the new carry.
+    """
+    s, Qtot, Q, C = _strips(sh, N, nt)
+    if C > 1:  # one item per thread: r = tid % s, c = tid / s
+        tid = torch.arange(nt)
+        r, q0 = tid % s, (tid // s) * Q
+        q1 = torch.clamp(q0 + Q, max=Qtot)
+    else:  # each thread walks whole residues
+        r = torch.arange(s)
+        q0, q1 = torch.zeros(s, dtype=torch.int64), torch.full((s,), Qtot)
+    live = q0 < q1
+    r, q0, q1 = r[live], q0[live], q1[live]
+    head = q0 == 0
+    x2 = torch.where(head, carry[off + r],
+                     src(torch.clamp(q0 - 2, min=0), r))
+    x1 = torch.where(head, carry[off + s + r],
+                     src(torch.clamp(q0 - 1, min=0), r))
+    b = (r == 0).to(torch.int64) if bias else torch.zeros_like(r)
+    for i in range(int((q1 - q0).max())):
+        q = q0 + i
+        on = q < q1
+        a = src(torch.where(on, q, 0), r)
+        even = (q & 1) == 0
+        t = (a + x2) & _M32
+        y = (torch.where(even, t, (-t) & _M32) + 2 * x1 + b) & _M32
+        dst[(q[on] << sh) + r[on]] = y[on]
+        x2, x1 = torch.where(on, x1, x2), torch.where(on, a, x1)
+    tail = q1 == Qtot
+    carry[off + r[tail]] = x2[tail]
+    carry[off + s + r[tail]] = x1[tail]
+
+
+def _last_pass(X, carry, *, N, wlen, fir):
+    """Groups of 8 elements: x[8g-2], x[8g-1] come from the group before
+    (a shuffle from the lane before; X or the carry for a warp's lane 0),
+    every step's sign fixed by its parity. Returns the pass's N outputs."""
+    NG = -(-N // 8)
+    Xp = torch.zeros(8 * NG, dtype=torch.int64)
+    Xp[:N] = X[:N]
+    v = Xp.reshape(NG, 8).clone()
+    if fir:
+        prev = torch.cat([carry[wlen - 2 : wlen], Xp[: 8 * NG - 2]])
+        prev = prev.reshape(NG, 8)  # prev[g, i] = x[8g + i - 2]
+        c, m = prev[:, 0], prev[:, 1]
+        for i in range(0, 8, 2):
+            a0, a1 = v[:, i].clone(), v[:, i + 1].clone()
+            v[:, i] = (a0 + c + 2 * m) & _M32
+            v[:, i + 1] = (2 * a0 - (a1 + m)) & _M32
+            c, m = a0, a1
+        carry[wlen - 2 : wlen] = X[N - 2 : N]
+    return v.reshape(-1)[:N]
+
+
+def _fused_model(k, vals, wrap0, *, level, rows, T, span, nt=512):
     """synth_fused_kernel's schedule in torch, uint32 math as int64 & M32.
 
-    One "CTA" per (file, span of `span` blocks). The span at block 0
-    starts from wrap0; any other span first synthesizes block blk0-1 from
-    a zero carry and discards its PCM. The CTA walks its blocks in tiles
-    of T, in order, carrying each pass's last 2s inputs in an array of
-    2*cols-2 words in wrap layout (pass p at offset sum of 2*s_q, q < p).
-    Pass 0 dequantizes the tile's staged k with the tile's vals, one block
-    at a time; every pass reads its halo f in [-2s, 0) from the carry. The
-    CTA whose span ends at block nb writes wrap_f.
+    One "CTA" of nt threads per (file, span of `span` blocks). The span
+    at block 0 starts from wrap0; any other span first synthesizes block
+    blk0-1 from a zero carry and discards its PCM. The CTA walks its
+    blocks in tiles of T, in order, carrying each pass's last 2s inputs
+    in an array of 2*cols-2 words in wrap layout (pass p at offset sum of
+    2*s_q, q < p). Pass 0 dequantizes the tile's staged k with the vals of
+    its block (one run of steps per block); passes 1..level-2 walk strips
+    in place; the last pass works in groups of 8. The CTA whose span ends
+    at block nb writes wrap_f.
     """
     B, nb = k.shape[:2]
     cols = 1 << level
     n = rows * cols
     wlen = 2 * cols - 2
+    R2 = 2 * rows  # pass-0 steps per block
     kk = k.to(torch.int64).reshape(B, nb * n)
     vv = vals.to(torch.int64)
     w0 = wrap0.to(torch.int64) & _M32
-    pcm = torch.empty((B, nb, n), dtype=torch.int16)
+    pcm = torch.empty((B, nb * n), dtype=torch.int16)
     wrapf = torch.empty((B, wlen), dtype=torch.int64)
     for b in range(B):
         for blk0 in range(0, nb, span):
@@ -155,77 +217,94 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span):
                 N = Tt * n
                 stage = kk[b, tblk * n : tblk * n + N]  # the prefetched k
                 tv = vv[b, tblk : tblk + Tt]  # the tile's vals
-                x = torch.cat([(stage[i * n : (i + 1) * n] * tv[i]) & _M32
-                               for i in range(Tt)])
-                f = torch.arange(N)
-                off = 0
-                for p in range(level):
+                X = torch.zeros(N, dtype=torch.int64)
+                sh0 = level - 1
+
+                def deq(q, r):
+                    return (stage[(q << sh0) + r] * tv[q // R2]) & _M32
+
+                _strip_pass(deq, X, carry, 0, sh=sh0, N=N, nt=nt, bias=True)
+                off = cols
+                for p in range(1, level - 1):
                     sh = level - 1 - p
-                    s = 1 << sh
-                    src = torch.cat([carry[off : off + 2 * s], x])
-                    y = _fir(src[2 * s :], src[s : s + N], src[:N], f, sh,
-                             p == 0)
-                    carry[off : off + 2 * s] = x[N - 2 * s :]
-                    x = y
-                    off += 2 * s
+                    _strip_pass(lambda q, r: X[(q << sh) + r], X, carry, off,
+                                sh=sh, N=N, nt=nt, bias=False)
+                    off += 2 << sh
+                y = _last_pass(X, carry, N=N, wlen=wlen, fir=level > 1)
                 skip = max(blk0 - tblk, 0) * n  # the re-synthesized block
-                out = _to_pcm(x, level)
-                pcm.reshape(B, nb * n)[b, tblk * n + skip : tblk * n + N] = (
-                    out[skip:])
+                pcm[b, tblk * n + skip : tblk * n + N] = _to_pcm(y, level)[
+                    skip:]
             if blk_end == nb:
                 wrapf[b] = carry
     wrapf = torch.where(wrapf >= 1 << 31, wrapf - (1 << 32), wrapf)
-    return pcm, wrapf.to(torch.int32)
+    return pcm.reshape(B, nb, n), wrapf.to(torch.int32)
 
 
-#: (level, rows, B, nb, T, span); None takes fused_plan's choice for a
-#: card with 264 resident CTAs (132 SMs x 2)
-@pytest.mark.parametrize("level,rows,B,nb,T,span", [
-    (7, 16, 2, 7, 3, 5),  # span ends mid-file, ragged last tile
-    (7, 16, 1, 9, None, None),  # the plan: spans of one block
-    (7, 16, 25, 32, None, None),  # the plan at the main path's B
-    (4, 40, 2, 5, 2, 3), (4, 40, 3, 11, 4, 4),  # spans do not divide nb
-    (10, 4, 1, 4, 1, 4), (10, 4, 3, 10, None, None),
-    (5, 33, 2, 3, 2, 2), (9, 3, 1, 5, 4, 2),
-    (1, 2, 2, 6, 4, 6), (1, 2, 2, 3, 8, 3),  # level 1; nb < T
-    (1, 3, 2, 9, 3, 4), (2, 3, 2, 7, None, None),  # n % 8 != 0
-    (3, 2, 1, 8, 8, 8), (12, 2, 1, 3, None, None),
-    (7, 16, 3, 5, 2, 1),  # every span one block
-])
-def test_fused_schedule_model_matches_plain(level, rows, B, nb, T, span):
-    if T is None:
-        T, span = sc.fused_plan(level, rows, B, nb, slots=264)
-    assert T >= 1 and span >= 1
+def _check_model(level, rows, B, nb, T, span, nt=512):
     k, v, w = _inputs(level, rows, B, nb, seed=level * 7 + nb)
     k, v, w = torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(w)
     want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=level, rows=rows)
     got_pcm, got_w = _fused_model(k, v, w, level=level, rows=rows, T=T,
-                                  span=span)
+                                  span=span, nt=nt)
     assert torch.equal(want_pcm, got_pcm)
     assert torch.equal(want_w, got_w)
+
+
+@pytest.mark.parametrize("level,rows,B,nb,T", [
+    (7, 16, 2, 7, 3),  # ragged last tile
+    (7, 16, 1, 9, None),  # the plan's own tile
+    (4, 40, 2, 5, 2), (10, 4, 1, 4, 1), (5, 33, 2, 3, 2), (9, 3, 1, 5, 4),
+    (1, 2, 2, 6, 4), (3, 2, 1, 8, 8), (12, 2, 1, 3, None),
+])
+def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
+    """The plan for a card with two slots per file: two spans per file,
+    the second cut mid-file."""
+    T0, span = sc.fused_plan(level, rows, B, nb, slots=2 * B)
+    assert T0 >= 1
+    _check_model(level, rows, B, nb, T or T0, span)
+
+
+#: (level, rows, B, nb, T, span, threads); None takes fused_plan's choice
+#: for a card with 264 resident CTAs (132 SMs x 2)
+@pytest.mark.parametrize("level,rows,B,nb,T,span,nt", [
+    (7, 16, 2, 7, 3, 5, 512),  # span ends mid-file, ragged last tile
+    (7, 16, 3, 5, 2, 1, 512),  # every span one block
+    (7, 16, 1, 3, 7, 3, 512),  # nb < T
+    (7, 16, 25, 32, None, None, 512),  # the plan at the main path's B
+    (4, 40, 3, 11, 4, 4, 512),  # spans do not divide nb
+    (4, 40, 2, 9, 3, 4, 8),  # pass 0: one run per residue (s == nt)
+    (10, 4, 2, 5, 2, 3, 512),  # pass 0: s == nt
+    (10, 4, 1, 4, 1, 4, 128),  # s > nt: threads walk several residues
+    (10, 4, 3, 10, None, None, 512),
+    (1, 2, 2, 6, 4, 6, 512), (1, 3, 2, 9, 3, 4, 32),  # level 1
+    (2, 3, 2, 7, 2, 3, 16),  # n % 8 != 0
+    (5, 33, 2, 3, 2, 2, 64), (12, 2, 1, 3, None, None, 512),
+])
+def test_fused_schedule_model_edges(level, rows, B, nb, T, span, nt):
+    if T is None:
+        T, span = sc.fused_plan(level, rows, B, nb, slots=264)
+    assert T >= 1 and span >= 1
+    _check_model(level, rows, B, nb, T, span, nt)
 
 
 @pytest.mark.parametrize("level,rows,nb,route", [
     (7, 16, 320, "fused"), (4, 40, 1216, "fused"), (10, 4, 160, "fused"),
     (5, 33, 64, "fused"), (9, 3, 8, "fused"), (12, 2, 4, "fused"),
-    (11, 3, 4, "fused"), (1, 3, 5, "fused"),
+    (11, 3, 4, "fused"), (1, 3, 5, "fused"), (12, 3, 2, "pass"),
     (0, 2048, 416, "pass"), (10, 1, 8, "pass"), (14, 1, 4, "pass"),
     (15, 16, 2, "pass"), (13, 2, 4, "pass"),
 ])
 def test_fused_tile_predicate(level, rows, nb, route):
-    """Fused route iff level >= 1, rows >= 2 and one block fits shared
-    memory; the tile is the largest for which two CTAs fit on an SM, or
-    one block where only one CTA fits."""
+    """Fused route iff level >= 1, rows >= 2 and a tile of one block
+    leaves room for two CTAs per SM; the tile is the largest for which two
+    CTAs fit."""
     T = sc.fused_tile(level, rows, nb)
     assert (T >= 1) == (route == "fused")
     if T:
-        smem = sc.fused_smem_bytes(level, rows, T)
-        assert smem <= sc.SMEM_LIMIT
-        if smem > sc.TILE_SMEM:
-            assert T == 1
-        else:
-            assert T == nb or sc.fused_smem_bytes(level, rows,
-                                                  T + 1) > sc.TILE_SMEM
+        assert 2 * (sc.fused_smem_bytes(level, rows, T)
+                    + sc.CTA_RESERVED) <= sc.SM_SMEM
+        assert T == nb or sc.fused_smem_bytes(level, rows,
+                                              T + 1) > sc.TILE_SMEM
 
 
 @pytest.mark.parametrize("level,rows,B,nb,slots", [
