@@ -69,6 +69,32 @@
 
 namespace {
 
+#ifdef SYNTH_PROFILE
+// Opt-in phase trace (nvcc -DSYNTH_PROFILE; tools/torch_synth_probe.py
+// builds and reads it): each thread sums the clock64() cycles it spends in
+// each phase of synth_fused_kernel in registers, and thread 0 writes its
+// sums to its CTA's row at the end. Slots: 0 cp.async wait, 1 tile
+// barrier, 2 pass 0, 3 its barrier, 4 halo loads of passes 1.., 5 their
+// barriers, 6 walks of passes 1.., 7 their barriers, 8 last pass, 9 whole
+// CTA, 10 tiles.
+__device__ long long synth_prof[4096][16];
+#define PROF_DECL long long prof[11] = {}
+#define PROF_T(name) const long long name = clock64()
+#define PROF_COUNT(slot) prof[slot] += 1
+#define PROF_ADD(slot, from) prof[slot] += clock64() - (from)
+#define PROF_WRITE                                                           \
+  if (threadIdx.x == 0) {                                                    \
+    for (int i = 0; i < 11; ++i)                                             \
+      synth_prof[(blockIdx.y * gridDim.x + blockIdx.x) & 4095][i] = prof[i]; \
+  }
+#else
+#define PROF_DECL
+#define PROF_T(name)
+#define PROF_COUNT(slot)
+#define PROF_ADD(slot, from)
+#define PROF_WRITE
+#endif
+
 __device__ __forceinline__ uint32_t fir(uint32_t a, uint32_t m, uint32_t c,
                                         int f, int sh, bool bias) {
   const uint32_t t = a + c;
@@ -102,8 +128,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Copy Tt blocks of k (n int16 each) and their vals into staging, `width`
-// bytes a copy. Widths 16, 8 and 4 are asynchronous; width 2 (k not
-// 4-byte aligned) is a plain copy, complete at the next barrier.
+// bytes a copy of k. Widths 16, 8 and 4 are asynchronous; width 2 (k not
+// 4-byte aligned) is a plain copy, complete at the next barrier. The vals
+// are copied asynchronously too, so no thread waits on device memory.
 __device__ __forceinline__ void stage_tile(const int16_t* __restrict__ src,
                                            const int32_t* __restrict__ vsrc,
                                            int16_t* dst, int32_t* vdst, int Tt,
@@ -121,7 +148,7 @@ __device__ __forceinline__ void stage_tile(const int16_t* __restrict__ src,
   } else {
     for (int i = tid; i < Tt * n; i += nt) dst[i] = src[i];
   }
-  for (int i = tid; i < Tt; i += nt) vdst[i] = vsrc[i];
+  for (int i = tid; i < Tt; i += nt) cp_async<4>(vdst + i, vsrc + i);
   cp_async_commit();
 }
 
@@ -157,16 +184,18 @@ __device__ __forceinline__ void walk(int q, int q1, uint32_t& x2, uint32_t& x1,
 
 // A pass of stride s = 1 << sh over N elements is cut into strips: item
 // (r, c) takes residue r and the run q in [c*Q, min((c+1)*Q, N/s)). Where
-// s <= nt there are nt/s runs per residue and each thread has one item,
+// s < nt (nt = 1 << lg_nt threads) there are C = nt/s runs per residue and
+// each thread has one item,
 // r = tid % s and c = tid / s; Q is odd, so for s < 32 the lanes of a warp
 // land on 32 different banks at every step, and at least 3, so that a run
 // past q = 0 finds x[q0-2] in the pass's input. Where s >= nt each thread
 // walks whole residues r = tid, tid + nt, ... (one run each).
 struct Strips {
   int s, sh, Qtot, Q, C;
-  __device__ Strips(int sh_, int N, int nt) : s(1 << sh_), sh(sh_), Qtot(N >> sh_) {
-    C = s < nt ? nt >> sh : 1;
-    Q = max(((Qtot + C - 1) / C) | 1, 3);
+  __device__ Strips(int sh_, int N, int lg_nt) : s(1 << sh_), sh(sh_), Qtot(N >> sh_) {
+    const int lg_c = max(lg_nt - sh, 0);
+    C = 1 << lg_c;
+    Q = max(((Qtot + C - 1) >> lg_c) | 1, 3);
   }
 };
 
@@ -174,7 +203,7 @@ struct Strips {
 // [up(2*T, 4)], the pass buffer X [up(T*n, 8)] (element e of the tile at
 // X[e], passes 1.. in place), then two staging buffers of up(T*n, 8)
 // int16. synth_cuda.fused_smem_bytes mirrors this.
-__global__ void __launch_bounds__(512, 2)
+__global__ void __launch_bounds__(256, 2)
 synth_fused_kernel(const int16_t* __restrict__ k,
                    const int32_t* __restrict__ vals,
                    const int32_t* __restrict__ wrap0,
@@ -191,7 +220,8 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   int16_t* stg = (int16_t*)(X + SN);
 
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int nt = blockDim.x;  // a power of two (synth_cuda._FUSED_THREADS)
+  const int lg_nt = 31 - __clz(nt);
   const int lane = tid & 31;
   const int b = blockIdx.y;
   const int blk0 = blockIdx.x * span;
@@ -201,6 +231,8 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   const int16_t* kf = k + (int64_t)b * nb * n;
   const int32_t* vf = vals + (int64_t)b * nb;
   const int R2 = 2 * rows;  // pass-0 steps per block (n = R2 * s0)
+  // q / R2 as __umulhi(q, r2inv): exact for q < 2^16 and R2 < 2^16
+  const uint32_t r2inv = 0xffffffffu / R2 + 1;
 
   const uintptr_t ka = (uintptr_t)k;
   const int width = (n % 8 == 0 && ka % 16 == 0) ? 16
@@ -208,6 +240,8 @@ synth_fused_kernel(const int16_t* __restrict__ k,
                     : (ka % 4 == 0) ? 4 : 2;  // n is even: level >= 1
   const bool pcm16 = ((uintptr_t)pcm % 16 == 0);
 
+  PROF_DECL;
+  PROF_T(t_cta);
   const int32_t* w0 = wrap0 + (int64_t)b * wlen;
   for (int i = tid; i < wlen; i += nt) carry[i] = blk0 ? 0u : (uint32_t)w0[i];
   stage_tile(kf + (int64_t)first * n, vf + first, stg, tv, min(T, blk_end - first), n,
@@ -225,7 +259,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
     // pass 0 reads k * val from staging and writes X; an item at q0 == 0
     // takes its halo from the carry, read here, before the barrier after
     // which the strip ending at N/s writes the new carry
-    const Strips P0(level - 1, N, nt);
+    const Strips P0(level - 1, N, lg_nt);
     const int r0 = tid & (P0.s - 1);
     const int q00 = P0.C > 1 ? (tid >> P0.sh) * P0.Q : 0;
     uint32_t h2 = 0, h1 = 0;
@@ -233,8 +267,14 @@ synth_fused_kernel(const int16_t* __restrict__ k,
       h2 = carry[r0];
       h1 = carry[P0.s + r0];
     }
+    PROF_T(t_wait);
     cp_async_wait_all();
+    PROF_ADD(0, t_wait);
+    PROF_T(t_top);
     __syncthreads();  // tile t staged; tile t-1 finished with X
+    PROF_ADD(1, t_top);
+    PROF_COUNT(10);
+    PROF_T(t_p0);
     if (t + 1 < ntiles) {
       const int nblk = tblk + T;
       stage_tile(kf + (int64_t)nblk * n, vf + nblk, stg + (cur ^ 1) * SN,
@@ -244,7 +284,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
     {
       const int s = P0.s;
       auto deq = [&](int q, int r) {  // a halo word, from staging
-        return (uint32_t)(int32_t)sk[(q << P0.sh) + r] * (uint32_t)sv[q / R2];
+        return (uint32_t)(int32_t)sk[(q << P0.sh) + r] * (uint32_t)sv[__umulhi(q, r2inv)];
       };
       for (int it = tid; it < (P0.C > 1 ? nt : s); it += nt) {
         const int r = it & (s - 1);
@@ -262,7 +302,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
         const uint32_t bias = r == 0;
         const int16_t* kc = sk + r;
         uint32_t* xc = X + r;
-        int q = q0, bi = q0 / R2;
+        int q = q0, bi = __umulhi(q0, r2inv);
         while (q < q1) {  // one run of constant val per block
           const int qe = min(q1, (bi + 1) * R2);
           const uint32_t v = (uint32_t)sv[bi];
@@ -278,12 +318,15 @@ synth_fused_kernel(const int16_t* __restrict__ k,
         }
       }
     }
+    PROF_ADD(2, t_p0);
+    PROF_T(t_p0bar);
     __syncthreads();
+    PROF_ADD(3, t_p0bar);
 
     // passes 1 .. level-2, in place on X
     int off = cols;  // pass 1's carry offset (pass 0's segment is cols long)
     for (int p = 1; p + 1 < level; ++p) {
-      const Strips P(level - 1 - p, N, nt);
+      const Strips P(level - 1 - p, N, lg_nt);
       const int s = P.s;
       if (P.C > 1) {
         // one item per thread; its halo is read before anyone writes
@@ -291,11 +334,16 @@ synth_fused_kernel(const int16_t* __restrict__ k,
         const int q0 = (tid >> P.sh) * P.Q;
         const int q1 = min(q0 + P.Q, P.Qtot);
         uint32_t x2 = 0, x1 = 0;
+        PROF_T(t_halo);
         if (q0 < q1) {
           x2 = q0 ? X[((q0 - 2) << P.sh) + r] : carry[off + r];
           x1 = q0 ? X[((q0 - 1) << P.sh) + r] : carry[off + s + r];
         }
+        PROF_ADD(4, t_halo);
+        PROF_T(t_halobar);
         __syncthreads();
+        PROF_ADD(5, t_halobar);
+        PROF_T(t_walk);
         if (q0 < q1) {
           uint32_t* xc = X + r;
           walk(q0, q1, x2, x1, 0u, [&](int j) { return xc[j << P.sh]; },
@@ -305,6 +353,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
             carry[off + s + r] = x1;
           }
         }
+        PROF_ADD(6, t_walk);
       } else {
         for (int r = tid; r < s; r += nt) {
           uint32_t x2 = carry[off + r], x1 = carry[off + s + r];
@@ -315,7 +364,9 @@ synth_fused_kernel(const int16_t* __restrict__ k,
           carry[off + s + r] = x1;
         }
       }
+      PROF_T(t_bar);
       __syncthreads();
+      PROF_ADD(7, t_bar);
       off += 2 * s;
     }
 
@@ -324,6 +375,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
     // loads (the half order swapped in every other group of 4 lanes, so a
     // quarter warp covers all 32 banks), takes x[8g-2], x[8g-1] from the
     // lane before it, and writes 8 samples of PCM in one 16-byte store
+    PROF_T(t_last);
     const bool fir_last = level > 1;
     const int skip = tblk < blk0 ? n : 0;
     const int64_t e0 = ((int64_t)b * nb + tblk) * n;  // PCM index of element 0
@@ -379,6 +431,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
       carry[wlen - 2] = X[N - 2];
       carry[wlen - 1] = X[N - 1];
     }
+    PROF_ADD(8, t_last);
   }
 
   __syncthreads();
@@ -386,6 +439,8 @@ synth_fused_kernel(const int16_t* __restrict__ k,
     int32_t* wf = wrapf + (int64_t)b * wlen;
     for (int i = tid; i < wlen; i += nt) wf[i] = (int32_t)carry[i];
   }
+  PROF_ADD(9, t_cta);
+  PROF_WRITE;
 }
 
 // One FIR pass over each file's flat stream of L = nb*n words. FROM_K:
@@ -500,5 +555,16 @@ int acm_synth_pass(const void* k, const void* xin, const void* vals,
   }
   return (int)cudaGetLastError();
 }
+
+#ifdef SYNTH_PROFILE
+// Copies the phase trace (4096 x 16 int64) to `out` (host memory) and
+// clears it; returns a cudaError.
+int acm_synth_prof_take(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, synth_prof, sizeof(synth_prof));
+  if (e != cudaSuccess) return (int)e;
+  static long long zeros[4096][16];
+  return (int)cudaMemcpyToSymbol(synth_prof, zeros, sizeof(synth_prof));
+}
+#endif
 
 }  // extern "C"

@@ -57,7 +57,7 @@ SM_SMEM = 233472
 CTA_RESERVED = 1024
 #: a fused tile's budget: two CTAs resident per SM
 TILE_SMEM = SM_SMEM // 2 - CTA_RESERVED
-_FUSED_THREADS = 512
+_FUSED_THREADS = 256
 _PASS_THREADS = 256
 _MAX_GRID_X = 65535
 

@@ -183,7 +183,8 @@ def _last_pass(X, carry, *, N, wlen, fir):
     return v.reshape(-1)[:N]
 
 
-def _fused_model(k, vals, wrap0, *, level, rows, T, span, nt=512):
+def _fused_model(k, vals, wrap0, *, level, rows, T, span,
+                 nt=sc._FUSED_THREADS):
     """synth_fused_kernel's schedule in torch, uint32 math as int64 & M32.
 
     One "CTA" of nt threads per (file, span of `span` blocks). The span
@@ -240,7 +241,7 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span, nt=512):
     return pcm.reshape(B, nb, n), wrapf.to(torch.int32)
 
 
-def _check_model(level, rows, B, nb, T, span, nt=512):
+def _check_model(level, rows, B, nb, T, span, nt=sc._FUSED_THREADS):
     k, v, w = _inputs(level, rows, B, nb, seed=level * 7 + nb)
     k, v, w = torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(w)
     want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=level, rows=rows)
@@ -267,18 +268,19 @@ def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
 #: (level, rows, B, nb, T, span, threads); None takes fused_plan's choice
 #: for a card with 264 resident CTAs (132 SMs x 2)
 @pytest.mark.parametrize("level,rows,B,nb,T,span,nt", [
-    (7, 16, 2, 7, 3, 5, 512),  # span ends mid-file, ragged last tile
-    (7, 16, 3, 5, 2, 1, 512),  # every span one block
-    (7, 16, 1, 3, 7, 3, 512),  # nb < T
-    (7, 16, 25, 32, None, None, 512),  # the plan at the main path's B
-    (4, 40, 3, 11, 4, 4, 512),  # spans do not divide nb
+    (7, 16, 2, 7, 3, 5, 256),  # span ends mid-file, ragged last tile
+    (7, 16, 3, 5, 2, 1, 256),  # every span one block
+    (7, 16, 1, 3, 7, 3, 256),  # nb < T
+    (7, 16, 25, 32, None, None, 256),  # the plan at the main path's B
+    (4, 40, 3, 11, 4, 4, 256),  # spans do not divide nb
     (4, 40, 2, 9, 3, 4, 8),  # pass 0: one run per residue (s == nt)
-    (10, 4, 2, 5, 2, 3, 512),  # pass 0: s == nt
+    (10, 4, 2, 5, 2, 3, 256),  # pass 0: s > nt
+    (9, 3, 2, 4, 2, 3, 256),  # pass 0: s == nt
     (10, 4, 1, 4, 1, 4, 128),  # s > nt: threads walk several residues
-    (10, 4, 3, 10, None, None, 512),
-    (1, 2, 2, 6, 4, 6, 512), (1, 3, 2, 9, 3, 4, 32),  # level 1
+    (10, 4, 3, 10, None, None, 256),
+    (1, 2, 2, 6, 4, 6, 256), (1, 3, 2, 9, 3, 4, 32),  # level 1
     (2, 3, 2, 7, 2, 3, 16),  # n % 8 != 0
-    (5, 33, 2, 3, 2, 2, 64), (12, 2, 1, 3, None, None, 512),
+    (5, 33, 2, 3, 2, 2, 64), (12, 2, 1, 3, None, None, 256),
 ])
 def test_fused_schedule_model_edges(level, rows, B, nb, T, span, nt):
     if T is None:
