@@ -152,31 +152,59 @@ __device__ __forceinline__ void stage_tile(const int16_t* __restrict__ src,
   cp_async_commit();
 }
 
-// Walk one strip of a pass, q ascending in [q, q1): element q*s + r of
-// the pass is y[q] = +-(x[q] + x[q-2]) + 2*x[q-1] + bias, + for even q.
-// x2, x1 hold x[q-2], x[q-1] on entry and the strip's last two inputs on
-// exit. Unrolled by two so that each step's sign is fixed; ld(q) and
-// st(q, y) address the strip.
-template <class Ld, class St>
+// A cursor on one strip of a pass of stride s: ld(i) and st(i, y) read
+// the input and write the output i steps (0 or 1) past the current one,
+// next(k) moves k steps on. XStrip works in place on the pass buffer;
+// KStrip reads staged k times its block's val and writes the buffer.
+struct XStrip {
+  uint32_t* p;
+  int s;
+  __device__ __forceinline__ uint32_t ld(int i) const { return p[i * s]; }
+  __device__ __forceinline__ void st(int i, uint32_t y) const { p[i * s] = y; }
+  __device__ __forceinline__ void next(int k) { p += k * s; }
+};
+
+struct KStrip {
+  const int16_t* k;
+  uint32_t* x;
+  int s;
+  uint32_t v;
+  __device__ __forceinline__ uint32_t ld(int i) const {
+    return (uint32_t)(int32_t)k[i * s] * v;
+  }
+  __device__ __forceinline__ void st(int i, uint32_t y) const { x[i * s] = y; }
+  __device__ __forceinline__ void next(int n) {
+    k += n * s;
+    x += n * s;
+  }
+};
+
+// Walk one strip of a pass, q ascending in [q, q1), the cursor c at step
+// q: y[q] = +-(x[q] + x[q-2]) + 2*x[q-1] + bias, + for even q. x2, x1
+// hold x[q-2], x[q-1] on entry and the strip's last two inputs on exit.
+// Unrolled by two so that each step's sign is fixed.
+template <class Strip>
 __device__ __forceinline__ void walk(int q, int q1, uint32_t& x2, uint32_t& x1,
-                                     uint32_t bias, Ld ld, St st) {
+                                     uint32_t bias, Strip c) {
   if (q < q1 && (q & 1)) {
-    const uint32_t a = ld(q);
-    st(q, 2u * x1 - (a + x2) + bias);
+    const uint32_t a = c.ld(0);
+    c.st(0, 2u * x1 - (a + x2) + bias);
     x2 = x1;
     x1 = a;
     ++q;
+    c.next(1);
   }
   for (; q + 1 < q1; q += 2) {
-    const uint32_t a0 = ld(q), a1 = ld(q + 1);
-    st(q, a0 + x2 + 2u * x1 + bias);
-    st(q + 1, 2u * a0 - (a1 + x1) + bias);
+    const uint32_t a0 = c.ld(0), a1 = c.ld(1);
+    c.st(0, a0 + x2 + 2u * x1 + bias);
+    c.st(1, 2u * a0 - (a1 + x1) + bias);
     x2 = a0;
     x1 = a1;
+    c.next(2);
   }
   if (q < q1) {
-    const uint32_t a = ld(q);
-    st(q, a + x2 + 2u * x1 + bias);
+    const uint32_t a = c.ld(0);
+    c.st(0, a + x2 + 2u * x1 + bias);
     x2 = x1;
     x1 = a;
   }
@@ -300,15 +328,11 @@ synth_fused_kernel(const int16_t* __restrict__ k,
           x1 = deq(q0 - 1, r);
         }
         const uint32_t bias = r == 0;
-        const int16_t* kc = sk + r;
-        uint32_t* xc = X + r;
         int q = q0, bi = __umulhi(q0, r2inv);
         while (q < q1) {  // one run of constant val per block
           const int qe = min(q1, (bi + 1) * R2);
-          const uint32_t v = (uint32_t)sv[bi];
-          walk(q, qe, x2, x1, bias,
-               [&](int j) { return (uint32_t)(int32_t)kc[j << P0.sh] * v; },
-               [&](int j, uint32_t y) { xc[j << P0.sh] = y; });
+          const int e = (q << P0.sh) + r;
+          walk(q, qe, x2, x1, bias, KStrip{sk + e, X + e, s, (uint32_t)sv[bi]});
           q = qe;
           ++bi;
         }
@@ -345,9 +369,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
         PROF_ADD(5, t_halobar);
         PROF_T(t_walk);
         if (q0 < q1) {
-          uint32_t* xc = X + r;
-          walk(q0, q1, x2, x1, 0u, [&](int j) { return xc[j << P.sh]; },
-               [&](int j, uint32_t y) { xc[j << P.sh] = y; });
+          walk(q0, q1, x2, x1, 0u, XStrip{X + (q0 << P.sh) + r, s});
           if (q1 == P.Qtot) {
             carry[off + r] = x2;
             carry[off + s + r] = x1;
@@ -357,9 +379,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
       } else {
         for (int r = tid; r < s; r += nt) {
           uint32_t x2 = carry[off + r], x1 = carry[off + s + r];
-          uint32_t* xc = X + r;
-          walk(0, P.Qtot, x2, x1, 0u, [&](int j) { return xc[j << P.sh]; },
-               [&](int j, uint32_t y) { xc[j << P.sh] = y; });
+          walk(0, P.Qtot, x2, x1, 0u, XStrip{X + r, s});
           carry[off + r] = x2;
           carry[off + s + r] = x1;
         }
