@@ -227,6 +227,149 @@ struct Strips {
   }
 };
 
+// One pass of stride S (4, 2 or 1) in registers over the 8 consecutive
+// elements from 8g: t holds the pass's inputs there and receives its
+// outputs, h holds its inputs x[8g-2S, 8g). 8g is a multiple of 2S, so
+// each step's sign is fixed by i.
+template <int S>
+__device__ __forceinline__ void reg_pass(uint32_t (&t)[8], const uint32_t* h) {
+  uint32_t y[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t m = i >= S ? t[i - S] : h[i + S];
+    const uint32_t c = i >= 2 * S ? t[i - 2 * S] : h[i];
+    y[i] = ((i / S) & 1) ? 2u * m - (t[i] + c) : t[i] + c + 2u * m;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = y[i];
+}
+
+// The halos of the last K passes (strides 4, 2, 1 for K = 3) at position
+// P, from the first one's inputs X[P-W, P) with W = 2*(2^K - 1): h4, h2,
+// h1 receive the inputs of the passes of stride 4, 2, 1 on [P-2s, P).
+template <int K>
+__device__ __forceinline__ void halos_at(const uint32_t* X, int P, uint32_t* h4,
+                                         uint32_t* h2, uint32_t* h1) {
+  constexpr int W = 2 * ((1 << K) - 1);
+  uint32_t u[16];
+#pragma unroll
+  for (int i = 16 - W; i < 16; ++i) u[i] = X[P - 16 + i];
+  if constexpr (K >= 3) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h4[i] = u[8 + i];
+#pragma unroll
+    for (int i = 15; i >= 10; --i) u[i] = fir(u[i], u[i - 4], u[i - 8], P - 16 + i, 2, false);
+  }
+  if constexpr (K >= 2) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h2[i] = u[12 + i];
+#pragma unroll
+    for (int i = 15; i >= 14; --i) u[i] = fir(u[i], u[i - 2], u[i - 4], P - 16 + i, 1, false);
+  }
+  h1[0] = u[14];
+  h1[1] = u[15];
+}
+
+// The last K passes (K = min(3, level - 1): strides 4, 2, 1) in registers,
+// then PCM. Each thread takes 8 consecutive elements g, reads them as two
+// 16-byte loads (the half order swapped in every other group of 4 lanes,
+// so a quarter warp covers all 32 banks), takes each pass's halo from the
+// lane before it by shuffles (a warp's lane 0 from the carry at g = 0,
+// else recomputed from X by halos_at), and writes 8 samples of PCM in one
+// 16-byte store where the tile's PCM is 16-byte aligned. K = 0 (level 1:
+// pass 0 already ran as the last pass) only stores. Thread 0 then writes
+// the K new carries, after it read the old ones at g = 0.
+template <int K>
+__device__ __forceinline__ void last_passes(const uint32_t* X, uint32_t* carry,
+                                            int16_t* __restrict__ pcm, int64_t e0,
+                                            int N, int skip, int level, int wlen,
+                                            bool vec) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int NG = (N + 7) >> 3;
+  uint32_t l4[8] = {}, l2[4] = {}, l1[2] = {};  // lane 0's halos
+  for (int g0 = tid - lane; g0 < NG; g0 += nt) {
+    const int g = g0 + lane;
+    uint32_t v[8];
+    if (g < NG) {
+      const uint4* p4 = (const uint4*)(X + 8 * g);
+      const int sw = (lane >> 2) & 1;
+      const uint4 u = p4[sw], w = p4[sw ^ 1];
+      const uint4 lo = sw ? w : u, hi = sw ? u : w;
+      v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = 0u;
+    }
+    if constexpr (K > 0) {
+      if (lane == 0 && g < NG) {
+        if (g == 0) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) l4[i] = K >= 3 ? carry[wlen - 14 + i] : 0u;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) l2[i] = K >= 2 ? carry[wlen - 6 + i] : 0u;
+          l1[0] = carry[wlen - 2];
+          l1[1] = carry[wlen - 1];
+        } else {
+          halos_at<K>(X, 8 * g, l4, l2, l1);
+        }
+      }
+      if constexpr (K >= 3) {
+        uint32_t h[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          h[i] = __shfl_up_sync(0xffffffffu, v[i], 1);
+          if (lane == 0) h[i] = l4[i];
+        }
+        reg_pass<4>(v, h);
+      }
+      if constexpr (K >= 2) {
+        uint32_t h[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          h[i] = __shfl_up_sync(0xffffffffu, v[4 + i], 1);
+          if (lane == 0) h[i] = l2[i];
+        }
+        reg_pass<2>(v, h);
+      }
+      uint32_t h[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        h[i] = __shfl_up_sync(0xffffffffu, v[6 + i], 1);
+        if (lane == 0) h[i] = l1[i];
+      }
+      reg_pass<1>(v, h);
+    }
+    if (g >= NG) continue;
+    const int e = 8 * g;
+    if (vec && e >= skip && e + 8 <= N) {
+      uint4 o;
+      o.x = __byte_perm((int32_t)v[0] >> level, (int32_t)v[1] >> level, 0x5410);
+      o.y = __byte_perm((int32_t)v[2] >> level, (int32_t)v[3] >> level, 0x5410);
+      o.z = __byte_perm((int32_t)v[4] >> level, (int32_t)v[5] >> level, 0x5410);
+      o.w = __byte_perm((int32_t)v[6] >> level, (int32_t)v[7] >> level, 0x5410);
+      *(uint4*)(pcm + e0 + e) = o;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (e + i >= skip && e + i < N) pcm[e0 + e + i] = to_pcm(v[i], level);
+      }
+    }
+  }
+  if constexpr (K > 0) {
+    if (tid == 0) {
+      uint32_t c4[8], c2[4], c1[2];
+      halos_at<K>(X, N, c4, c2, c1);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) if (K >= 3) carry[wlen - 14 + i] = c4[i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) if (K >= 2) carry[wlen - 6 + i] = c2[i];
+      carry[wlen - 2] = c1[0];
+      carry[wlen - 1] = c1[1];
+    }
+  }
+}
+
 // Shared memory (words): carry [up(2*cols-2, 4)], the vals of two tiles
 // [up(2*T, 4)], the pass buffer X [up(T*n, 8)] (element e of the tile at
 // X[e], passes 1.. in place), then two staging buffers of up(T*n, 8)
@@ -250,7 +393,6 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   const int tid = threadIdx.x;
   const int nt = blockDim.x;  // a power of two (synth_cuda._FUSED_THREADS)
   const int lg_nt = 31 - __clz(nt);
-  const int lane = tid & 31;
   const int b = blockIdx.y;
   const int blk0 = blockIdx.x * span;
   const int blk_end = min(nb, blk0 + span);
@@ -347,9 +489,10 @@ synth_fused_kernel(const int16_t* __restrict__ k,
     __syncthreads();
     PROF_ADD(3, t_p0bar);
 
-    // passes 1 .. level-2, in place on X
+    // passes 1 .. level-1-K, in place on X; the last K run in registers
+    const int K = min(3, level - 1);
     int off = cols;  // pass 1's carry offset (pass 0's segment is cols long)
-    for (int p = 1; p + 1 < level; ++p) {
+    for (int p = 1; p < level - K; ++p) {
       const Strips P(level - 1 - p, N, lg_nt);
       const int s = P.s;
       if (P.C > 1) {
@@ -390,66 +533,15 @@ synth_fused_kernel(const int16_t* __restrict__ k,
       off += 2 * s;
     }
 
-    // the last pass (s = 1; at level 1 pass 0 is the last and already ran):
-    // each thread takes 8 consecutive elements, reads them as two 16-byte
-    // loads (the half order swapped in every other group of 4 lanes, so a
-    // quarter warp covers all 32 banks), takes x[8g-2], x[8g-1] from the
-    // lane before it, and writes 8 samples of PCM in one 16-byte store
     PROF_T(t_last);
-    const bool fir_last = level > 1;
     const int skip = tblk < blk0 ? n : 0;
     const int64_t e0 = ((int64_t)b * nb + tblk) * n;  // PCM index of element 0
     const bool vec = pcm16 && (e0 & 7) == 0;
-    const int NG = (N + 7) >> 3;
-    for (int g0 = tid - lane; g0 < NG; g0 += nt) {
-      const int g = g0 + lane;
-      uint32_t v[8];
-      if (g < NG) {
-        const uint4* p4 = (const uint4*)(X + 8 * g);
-        const int sw = (lane >> 2) & 1;
-        const uint4 u = p4[sw], w = p4[sw ^ 1];
-        const uint4 lo = sw ? w : u, hi = sw ? u : w;
-        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = 0u;
-      }
-      if (fir_last) {
-        uint32_t c = __shfl_up_sync(0xffffffffu, v[6], 1);
-        uint32_t m = __shfl_up_sync(0xffffffffu, v[7], 1);
-        if (lane == 0 && g < NG) {
-          c = g ? X[8 * g - 2] : carry[wlen - 2];
-          m = g ? X[8 * g - 1] : carry[wlen - 1];
-        }
-#pragma unroll
-        for (int i = 0; i < 8; i += 2) {
-          const uint32_t a0 = v[i], a1 = v[i + 1];
-          v[i] = a0 + c + 2u * m;
-          v[i + 1] = 2u * a0 - (a1 + m);
-          c = a0;
-          m = a1;
-        }
-      }
-      if (g >= NG) continue;
-      const int e = 8 * g;
-      if (vec && e >= skip && e + 8 <= N) {
-        uint4 o;
-        o.x = __byte_perm((int32_t)v[0] >> level, (int32_t)v[1] >> level, 0x5410);
-        o.y = __byte_perm((int32_t)v[2] >> level, (int32_t)v[3] >> level, 0x5410);
-        o.z = __byte_perm((int32_t)v[4] >> level, (int32_t)v[5] >> level, 0x5410);
-        o.w = __byte_perm((int32_t)v[6] >> level, (int32_t)v[7] >> level, 0x5410);
-        *(uint4*)(pcm + e0 + e) = o;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (e + i >= skip && e + i < N) pcm[e0 + e + i] = to_pcm(v[i], level);
-        }
-      }
-    }
-    if (fir_last && tid == 0) {  // after thread 0 read the old one above
-      carry[wlen - 2] = X[N - 2];
-      carry[wlen - 1] = X[N - 1];
+    switch (K) {
+      case 0: last_passes<0>(X, carry, pcm, e0, N, skip, level, wlen, vec); break;
+      case 1: last_passes<1>(X, carry, pcm, e0, N, skip, level, wlen, vec); break;
+      case 2: last_passes<2>(X, carry, pcm, e0, N, skip, level, wlen, vec); break;
+      default: last_passes<3>(X, carry, pcm, e0, N, skip, level, wlen, vec); break;
     }
     PROF_ADD(8, t_last);
   }

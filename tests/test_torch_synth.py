@@ -162,24 +162,64 @@ def _strip_pass(src, dst, carry, off, *, sh, N, nt, bias):
     carry[off + s + r[tail]] = x1[tail]
 
 
-def _last_pass(X, carry, *, N, wlen, fir):
-    """Groups of 8 elements: x[8g-2], x[8g-1] come from the group before
-    (a shuffle from the lane before; X or the carry for a warp's lane 0),
-    every step's sign fixed by its parity. Returns the pass's N outputs."""
+def _fir_at(a, m, c, f, sh):
+    """One FIR step on uint32 words (ints) at position f of stride 1 << sh."""
+    t = (a + c) & _M32
+    return ((2 * m - t) if (f >> sh) & 1 else (t + 2 * m)) & _M32
+
+
+def _halos_at(X, P, K):
+    """halos_at: {s: the inputs of the pass of stride s on [P-2s, P)} for
+    the last K passes, from the first one's inputs X[P-W, P)."""
+    W = 2 * ((1 << K) - 1)
+    u = [0] * 16
+    for i in range(16 - W, 16):
+        u[i] = int(X[P - 16 + i])
+    h = {}
+    if K >= 3:
+        h[4] = u[8:16]
+        for i in range(15, 9, -1):
+            u[i] = _fir_at(u[i], u[i - 4], u[i - 8], P - 16 + i, 2)
+    if K >= 2:
+        h[2] = u[12:16]
+        for i in range(15, 13, -1):
+            u[i] = _fir_at(u[i], u[i - 2], u[i - 4], P - 16 + i, 1)
+    h[1] = u[14:16]
+    return h
+
+
+def _last_passes(X, carry, *, N, wlen, K):
+    """The last K passes (strides 4, 2, 1) in groups of 8 elements. A
+    group's halo of each pass is the group before's values there (a
+    shuffle from the lane before); a warp's lane 0 (g % 32 == 0) takes
+    the carry at g = 0 and _halos_at(X, 8g) elsewhere. Thread 0 then
+    writes the new carries from _halos_at(X, N). Returns the N outputs."""
     NG = -(-N // 8)
-    Xp = torch.zeros(8 * NG, dtype=torch.int64)
-    Xp[:N] = X[:N]
-    v = Xp.reshape(NG, 8).clone()
-    if fir:
-        prev = torch.cat([carry[wlen - 2 : wlen], Xp[: 8 * NG - 2]])
-        prev = prev.reshape(NG, 8)  # prev[g, i] = x[8g + i - 2]
-        c, m = prev[:, 0], prev[:, 1]
-        for i in range(0, 8, 2):
-            a0, a1 = v[:, i].clone(), v[:, i + 1].clone()
-            v[:, i] = (a0 + c + 2 * m) & _M32
-            v[:, i + 1] = (2 * a0 - (a1 + m)) & _M32
-            c, m = a0, a1
-        carry[wlen - 2 : wlen] = X[N - 2 : N]
+    v = torch.zeros(8 * NG, dtype=torch.int64)
+    v[:N] = X[:N]
+    v = v.reshape(NG, 8)
+    if K == 0:
+        return v.reshape(-1)[:N]
+    lane0 = {0: {4: carry[wlen - 14 : wlen - 6].tolist(),
+                 2: carry[wlen - 6 : wlen - 2].tolist(),
+                 1: carry[wlen - 2 : wlen].tolist()}}
+    for g in range(32, NG, 32):
+        lane0[g] = _halos_at(X, 8 * g, K)
+    for S in (4, 2, 1)[3 - K :]:
+        h = torch.zeros((NG, 2 * S), dtype=torch.int64)
+        h[1:] = v[:-1, 8 - 2 * S :]
+        for g, halos in lane0.items():
+            h[g] = torch.tensor(halos[S], dtype=torch.int64)
+        y = torch.empty_like(v)
+        for i in range(8):
+            m = v[:, i - S] if i >= S else h[:, i + S]
+            c = v[:, i - 2 * S] if i >= 2 * S else h[:, i]
+            t = (v[:, i] + c) & _M32
+            y[:, i] = ((2 * m - t) if (i // S) & 1 else (t + 2 * m)) & _M32
+        v = y
+    for S, new in _halos_at(X, N, K).items():
+        off = wlen - 4 * S + 2
+        carry[off : off + 2 * S] = torch.tensor(new, dtype=torch.int64)
     return v.reshape(-1)[:N]
 
 
@@ -193,9 +233,10 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span,
     blocks in tiles of T, in order, carrying each pass's last 2s inputs
     in an array of 2*cols-2 words in wrap layout (pass p at offset sum of
     2*s_q, q < p). Pass 0 dequantizes the tile's staged k with the vals of
-    its block (one run of steps per block); passes 1..level-2 walk strips
-    in place; the last pass works in groups of 8. The CTA whose span ends
-    at block nb writes wrap_f.
+    its block (one run of steps per block); passes 1..level-1-K walk
+    strips in place; the last K = min(3, level - 1) passes run in groups
+    of 8 (_last_passes). The CTA whose span ends at block nb writes
+    wrap_f.
     """
     B, nb = k.shape[:2]
     cols = 1 << level
@@ -225,13 +266,14 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span,
                     return (stage[(q << sh0) + r] * tv[q // R2]) & _M32
 
                 _strip_pass(deq, X, carry, 0, sh=sh0, N=N, nt=nt, bias=True)
+                K = min(3, level - 1)
                 off = cols
-                for p in range(1, level - 1):
+                for p in range(1, level - K):
                     sh = level - 1 - p
                     _strip_pass(lambda q, r: X[(q << sh) + r], X, carry, off,
                                 sh=sh, N=N, nt=nt, bias=False)
                     off += 2 << sh
-                y = _last_pass(X, carry, N=N, wlen=wlen, fir=level > 1)
+                y = _last_passes(X, carry, N=N, wlen=wlen, K=K)
                 skip = max(blk0 - tblk, 0) * n  # the re-synthesized block
                 pcm[b, tblk * n + skip : tblk * n + N] = _to_pcm(y, level)[
                     skip:]
@@ -280,6 +322,7 @@ def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
     (10, 4, 3, 10, None, None, 256),
     (1, 2, 2, 6, 4, 6, 256), (1, 3, 2, 9, 3, 4, 32),  # level 1
     (2, 3, 2, 7, 2, 3, 16),  # n % 8 != 0
+    (2, 40, 1, 4, 3, 4, 256), (3, 40, 1, 3, 2, 3, 256),  # K = 1, 2
     (5, 33, 2, 3, 2, 2, 64), (12, 2, 1, 3, None, None, 256),
 ])
 def test_fused_schedule_model_edges(level, rows, B, nb, T, span, nt):
