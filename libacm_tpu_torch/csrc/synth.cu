@@ -16,10 +16,11 @@
 // Two routes, chosen by the host wrapper (ops/synth_cuda.py):
 //
 // * synth_fused_kernel — rows >= 2, level >= 1, and a tile of one block
-//   fits shared memory. It replaces an earlier one-tile-per-CTA design,
-//   which re-synthesized a predecessor block for every tile of T blocks, loaded
-//   its whole tile before its passes and stored it after (so memory and
-//   ALUs took turns), and fit one CTA per SM. Here:
+//   leaves room for two CTAs per SM. It replaces an earlier
+//   one-tile-per-CTA design, which re-synthesized a predecessor block for
+//   every tile of T blocks, loaded its whole tile before its passes and
+//   stored it after (so memory and ALUs took turns), read and wrote shared
+//   memory four times per element per pass, and fit one CTA per SM. Here:
 //   - Each CTA takes a span of consecutive blocks of one file and walks it
 //     in tiles of T blocks, in order: the loop inside the CTA takes the
 //     place of the TPU's sequential grid. Between tiles it carries each
@@ -34,19 +35,23 @@
 //     writes the carry to wrap_f.
 //   - The tile is sized for two resident CTAs per SM, and the spans for
 //     about one wave of them (synth_cuda.fused_plan).
-//   - The next tile's k is copied into a second staging buffer with
-//     cp.async (16 bytes a copy where n % 8 == 0 and k is 16-byte aligned,
-//     else 8, 4 or 2) while the current tile's passes run. Pass 0 reads k
-//     from staging and multiplies by the tile's vals (no dequantize sweep).
-//   - The passes walk strips (see Strips below): a thread takes one
-//     residue r of the stride s and a run of consecutive q of f = q*s + r,
-//     keeps x[q-2] and x[q-1] in registers, and so reads and writes each
-//     element once per pass, in place, with the sign fixed per unrolled
-//     step and the pass-0 bias per strip. Runs have odd length, which keeps
-//     a warp's 32 lanes on 32 banks for every s < 32 without padding.
-//   - The last pass (s = 1) takes 8 consecutive elements a thread from two
-//     16-byte shared loads and writes them as one 16-byte PCM store (where
-//     the tile's PCM is 16-byte aligned), so there is no store sweep.
+//   - The next tile's k and vals are copied into a second staging buffer
+//     with cp.async (16 bytes a copy of k where n % 8 == 0 and k is
+//     16-byte aligned, else 8, 4 or 2) while the current tile's passes
+//     run. Pass 0 reads k from staging and multiplies by its block's val
+//     (no dequantize sweep).
+//   - Passes 0 .. level-4 (pass 0 alone below level 4) walk strips (see
+//     Strips): a thread takes one residue r of the stride s and a run of
+//     consecutive q of f = q*s + r, keeps x[q-2] and x[q-1] in registers,
+//     and so reads and writes each element once per pass, in place, with
+//     the sign fixed per unrolled step and the pass-0 bias per strip. Runs
+//     have odd length, which keeps a warp's 32 lanes on 32 banks for every
+//     s < 32 without padding.
+//   - The last three passes (strides 4, 2, 1; fewer below level 4) run in
+//     registers on 8
+//     consecutive elements a thread, their halos shuffled from the lane
+//     before (last_passes), and PCM leaves in 16-byte stores, so they cost
+//     no shared-memory traffic, no barrier and no store sweep.
 // * synth_pass_kernel — every other geometry (rows == 1, where the re-synth
 //   is not exact; tiles too large for shared memory; level 0). One launch
 //   per pass over each file's whole flat stream in device memory, the halo
@@ -61,8 +66,9 @@
 // shift). On an H100 (3.35 TB/s, 132 SMs x 64 int32 lanes x 1.98 GHz) the
 // bytes bound is the larger at 7/16 and 4/40 and the operations bound at
 // 10/4. Beyond either, the kernel pays a shared-memory load and store per
-// element per pass, the address arithmetic of the strips, and 2*level-2
-// barriers per tile.
+// element for each strip pass, with two barriers each, and the address
+// arithmetic of the strips; PERF.md holds its measured share of the bound
+// and the phase trace (SYNTH_PROFILE) of where a CTA's cycles go.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -213,11 +219,11 @@ __device__ __forceinline__ void walk(int q, int q1, uint32_t& x2, uint32_t& x1,
 // A pass of stride s = 1 << sh over N elements is cut into strips: item
 // (r, c) takes residue r and the run q in [c*Q, min((c+1)*Q, N/s)). Where
 // s < nt (nt = 1 << lg_nt threads) there are C = nt/s runs per residue and
-// each thread has one item,
-// r = tid % s and c = tid / s; Q is odd, so for s < 32 the lanes of a warp
-// land on 32 different banks at every step, and at least 3, so that a run
-// past q = 0 finds x[q0-2] in the pass's input. Where s >= nt each thread
-// walks whole residues r = tid, tid + nt, ... (one run each).
+// each thread has one item, r = tid % s and c = tid / s; Q is odd, so for
+// s < 32 the lanes of a warp land on 32 different banks at every step, and
+// at least 3, so that a run past q = 0 finds x[q0-2] in the pass's input.
+// Where s >= nt each thread walks whole residues r = tid, tid + nt, ...
+// (one run each).
 struct Strips {
   int s, sh, Qtot, Q, C;
   __device__ Strips(int sh_, int N, int lg_nt) : s(1 << sh_), sh(sh_), Qtot(N >> sh_) {

@@ -22,9 +22,10 @@ pass, the shift). On an H100 that makes the bytes bound the larger at
   carrying the halo between tiles; a span that does not start at block 0
   first re-synthesizes the block before it from a zero carry (exact for
   rows >= 2, see synth_torch.carry_of_block). k is prefetched into shared
-  memory while the previous tile's passes run; each pass walks strips in
-  place; the last writes 16-byte PCM stores. `fused_plan` sizes the tile
-  for two resident CTAs per SM and the spans for about one wave of them.
+  memory while the previous tile's passes run; the passes walk strips in
+  place, the last three run in registers and write 16-byte PCM stores.
+  `fused_plan` sizes the tile for two resident CTAs per SM and the spans
+  for about one wave of them.
 - per pass (`synth_pass_kernel`): rows == 1, tiles too large for shared
   memory, and level 0. One launch per pass (one for level 0) over each
   file's flat stream in device memory.
@@ -49,14 +50,14 @@ _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE.parent / "csrc" / "synth.cu"
 _BUILD_DIR = _HERE.parent / "_build"
 
-#: shared memory one CTA may use on Hopper (227 KB of the SM's 256 KB)
-SMEM_LIMIT = 232448
 #: shared memory the CTAs resident on one SM share (228 KB), and what the
 #: runtime reserves for each CTA
 SM_SMEM = 233472
 CTA_RESERVED = 1024
 #: a fused tile's budget: two CTAs resident per SM
 TILE_SMEM = SM_SMEM // 2 - CTA_RESERVED
+#: threads per fused CTA: a power of two (the kernel sizes strips by
+#: shifts), at most the kernel's __launch_bounds__
 _FUSED_THREADS = 256
 _PASS_THREADS = 256
 _MAX_GRID_X = 65535
