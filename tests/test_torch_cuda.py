@@ -103,3 +103,35 @@ def test_fused_config_two_ctas_per_sm():
         cfg = sc.fused_config(level, rows, B, nb, dev)
         assert cfg["ctas_per_sm"] >= 2, (level, rows, cfg)
         assert cfg["grid"][0] * cfg["grid"][1] <= sms * cfg["ctas_per_sm"]
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_kernel_matches_plain_random_geometries(seed):
+    """Six random geometries per seed (level 1-12, rows 1-48, up to 40
+    files of up to 64 blocks, at most 4 M samples), whichever route each
+    takes: PCM and final carry bit-equal to the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(1000 + seed)
+    for _ in range(6):
+        level = int(rng.integers(1, 13))
+        rows = int(rng.integers(1, 49))
+        n = rows << level
+        B = int(rng.integers(1, 41))
+        nb = int(rng.integers(1, 65))
+        while B * nb * n > 1 << 22 and nb > 1:
+            nb //= 2
+        B = max(1, min(B, (1 << 22) // (nb * n)))
+        cols = 1 << level
+        k = torch.from_numpy(rng.integers(-2000, 2000, (B, nb, rows, cols))
+                             .astype(np.int16)).to(dev)
+        v = torch.from_numpy(rng.integers(0, 1 << 16, (B, nb))
+                             .astype(np.int32)).to(dev)
+        w = torch.from_numpy(rng.integers(-500, 500, (B, 2 * cols - 2))
+                             .astype(np.int32)).to(dev)
+        got_pcm, got_w = sc.synth_pcm_batch(k, v, w, level=level, rows=rows)
+        torch.cuda.synchronize()
+        want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=level,
+                                              rows=rows)
+        geom = (level, rows, B, nb)
+        assert torch.equal(got_pcm, want_pcm), geom
+        assert torch.equal(got_w, want_w), geom
