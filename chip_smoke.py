@@ -19,7 +19,24 @@ Phases (any failure exits non-zero, and no result line is printed):
             torch.cuda.synchronize()), each kernel's time per bench
             geometry with CUDA events beside the plain version's time and
             the bound, its launch shape (shared memory per CTA, resident
-            CTAs per SM), and one JSON line of kernels.
+            CTAs per SM).
+5. reference API on the card, three paths, each with the launch
+            counters reset just before it and read just after:
+            stream — every tests/fixtures file and one full-size file of
+            each bench-mix class (and a bit-flipped one) through
+            acm_open_file/acm_open_decoder(device="cuda") + read_loop,
+            equal to the same stream under synth_backend="host" and to
+            the golden .raw; seeks forward, back to 0, and the
+            stale-amp-table seek sequences;
+            random access — 1,000 random windows of 1-50,000 frames over
+            the 190-file corpus through RandomAccessCorpus(device="cuda"),
+            equal to backend="host";
+            CLI — `acmtool -d -r -o` in process on three fixtures, equal
+            to the goldens.
+            Then whole-file stream Msamples/s and segments per second, card
+            against host, and the kernel's time at the shapes these paths
+            give it (B = 1) beside its plain version and its bound; last,
+            one JSON line of kernels.
 
 The last line is {"ok": true, "device": {...}}. Needs no network; imports
 torch, numpy and libacm_tpu_torch only.
@@ -27,12 +44,15 @@ torch, numpy and libacm_tpu_torch only.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -56,6 +76,21 @@ MIX = [
     ("wavc", 5, 2, 7, 16, 300, 1, 22050, True, 5, 4.0),
 ]
 N_HOSTILE = 5  # 3 bit-flipped + 2 truncated level-7 members, as bench.py
+
+#: phase 5's kernel shapes, one file per launch: (what, level, rows, nb).
+#: Whole bench-mix files through the stream; read_segment spans (a
+#: window's blocks plus one warm-up block, padded to 8 blocks); a rows == 1
+#: file (the per-pass route, one launch per level) of a 7/16 file's length
+NEW_SHAPES = [("stream, whole file", 7, 16, 300),
+              ("stream, whole file", 4, 40, 1200),
+              ("stream, whole file", 10, 4, 150),
+              ("stream, whole file", 0, 2048, 400),
+              ("read_segment, short", 7, 16, 8),
+              ("read_segment, 50,000 frames", 7, 16, 32),
+              ("read_segment, short", 4, 40, 8),
+              ("stream, rows == 1", 7, 1, 4800)]
+#: phase 5's CLI fixtures: a fused, a level-0 and a rows == 1 stream
+CLI_FIXTURES = ("speech_22k_mono", "level0", "rows1")
 
 #: kernel parity geometries (level, rows, files, blocks per file): the
 #: bench geometries, then the extremes, then the fused route's edges
@@ -172,9 +207,9 @@ def bound(level: int, rows: int, B: int, nb: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_breakdown(torch, corpus, files, card: str) -> None:
-    """One decode under torch.profiler: device time by kernel name, the
-    device's busy share of the wall time, and the host scan time."""
+def _profiled(torch, fn) -> tuple[float, list]:
+    """fn() under torch.profiler: (wall s, [(device ms, launches, kernel
+    name)] largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -182,8 +217,8 @@ def profile_breakdown(torch, corpus, files, card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        dc = corpus.decode_corpus_device(files, device="cuda")
-        dc.block_until_ready()
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = []
     for ev in prof.key_averages():
@@ -193,18 +228,31 @@ def profile_breakdown(torch, corpus, files, card: str) -> None:
         if us is None:
             us = ev.self_cuda_time_total
         dev.append((us / 1e3, ev.count, ev.key))
-    busy = sum(ms for ms, _, _ in dev)
+    return wall, sorted(dev, reverse=True)
+
+
+def print_breakdown(label: str, wall: float, ranked: list, card: str,
+                    host_note: str = "") -> None:
+    """The device's busy share of the wall time and its kernels by time."""
+    busy = sum(ms for ms, _, _ in ranked)
     if not busy:
-        print("phase 4: profiler recorded no device time: breakdown not "
+        print(f"{label}: profiler recorded no device time: breakdown not "
               "measured")
         return
-    print(f"phase 4: profiled decode wall {wall * 1e3} ms, host scan "
-          f"{dc.summary.scan_s * 1e3} ms, device busy {busy} ms "
-          f"({busy / (wall * 1e3):.1%} of wall) {card}")
-    ranked = sorted(dev, reverse=True)
+    print(f"{label}: profiled wall {wall * 1e3} ms{host_note}, device busy "
+          f"{busy} ms ({busy / (wall * 1e3):.1%} of wall) {card}")
     for i, (ms, count, key) in enumerate(ranked):
         if i < 8 or "synth_" in key:
             print(f"  device #{i + 1}: {ms} ms in {count} x {key[:90]}")
+
+
+def profile_breakdown(torch, corpus, files, card: str) -> None:
+    """One corpus decode under torch.profiler, with the host scan time."""
+    out = []
+    wall, ranked = _profiled(torch, lambda: out.append(
+        corpus.decode_corpus_device(files, device="cuda")))
+    print_breakdown("phase 4: decode", wall, ranked, card,
+                    f", host scan {out[0].summary.scan_s * 1e3} ms")
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -241,6 +289,237 @@ def _max_err(torch, got, want, level) -> int:
         err = max(err, int((got[1].to(torch.int64) - want[1].to(torch.int64))
                            .abs().max().item()))
     return err
+
+
+def _drain(stream, errors) -> bytes:
+    """read_loop to EOF, reading on past decode errors (each raised read
+    consumes one failed attempt, as the reference's next read does)."""
+    out = bytearray()
+    while True:
+        try:
+            b = stream.read_loop(1 << 16)
+        except errors:
+            continue
+        if not b:
+            return bytes(out)
+        out += b
+
+
+def _seek_drain(stream, errors, pre, tgt) -> bytes:
+    """Read `pre` bytes (None: drain to EOF), seek to frame tgt, drain:
+    the sequences of tests/test_ref_live.py's stale-amp-table seeks."""
+    if pre is None:
+        _drain(stream, errors)
+    else:
+        left = pre
+        while left > 0:
+            try:
+                b = stream.read_loop(min(1 << 16, left))
+            except errors:
+                break
+            if not b:
+                break
+            left -= len(b)
+    stream.seek_pcm(tgt)
+    return _drain(stream, errors)
+
+
+def phase5_stream(torch, synth_cuda, files, card) -> dict:
+    """Every fixture and one full-size file per bench-mix class through the
+    port's stream on the card, each against the same stream under
+    synth_backend="host" (and its golden .raw); seeks. Returns the
+    launches of those checks."""
+    import libacm_tpu_torch as acm
+    from libacm_tpu_torch import io as tio
+    from libacm_tpu_torch.format import cli_total_bytes
+
+    err = acm.AcmException
+    fixtures = sorted((ROOT / "tests" / "fixtures").glob("*.acm"))
+    check(len(fixtures) >= 20, "tests/fixtures is missing files")
+    synth_cuda.reset_launches()
+    n = 0
+    for path in fixtures:
+        card_s = acm.acm_open_file(path, device="cuda")
+        host_s = acm.AcmStream(tio.FileSource(path), synth_backend="host")
+        got = _drain(card_s, err)
+        check(got == _drain(host_s, err),
+              f"stream {path.name}: card bytes differ from the host synth")
+        golden = ROOT / "tests" / "goldens" / f"{path.stem}.raw"
+        if golden.exists():
+            # acmtool -d -r: 8 KiB reads until an error or EOF, then zeros
+            s = acm.acm_open_file(path, device="cuda")
+            total = cli_total_bytes(s.total_values, s.channels)
+            out = bytearray()
+            while len(out) < total:
+                try:
+                    b = s.read_loop(8192)
+                except err:
+                    break
+                if not b:
+                    break
+                out += b
+            out += bytes(max(0, total - len(out)))
+            check(bytes(out) == golden.read_bytes(),
+                  f"stream {path.name}: differs from its golden .raw")
+        n += 1
+    for data in files:
+        card_s = acm.acm_open_decoder(data, device="cuda")
+        host_s = acm.AcmStream(tio.BytesSource(data), synth_backend="host")
+        check(_drain(card_s, err) == _drain(host_s, err),
+              "bench-mix stream: card bytes differ from the host synth")
+        n += 1
+    # seeks: forward to the middle, then back to 0
+    for src in fixtures + files:
+        card_s = (acm.acm_open_file(src, device="cuda")
+                  if isinstance(src, pathlib.Path)
+                  else acm.acm_open_decoder(src, device="cuda"))
+        host_s = acm.AcmStream(
+            tio.FileSource(src) if isinstance(src, pathlib.Path)
+            else tio.BytesSource(src), synth_backend="host")
+        mid = host_s.pcm_total() // 2
+        check(card_s.seek_pcm(mid) == host_s.seek_pcm(mid)
+              and _drain(card_s, err) == _drain(host_s, err),
+              "seek to the middle: card differs from the host synth")
+        check(card_s.seek_pcm(0) == host_s.seek_pcm(0)
+              and _drain(card_s, err) == _drain(host_s, err),
+              "seek back to 0: card differs from the host synth")
+    stale = [("seek_readahead_stale", pre, tgt)
+             for pre, tgt in ((64, 0), (64, 1), (128, 0))]
+    stale += [("seek_terminal_att_stale", None, tgt) for tgt in (0, 1, 7)]
+    for name, pre, tgt in stale:
+        path = ROOT / "tests" / "fixtures" / f"{name}.acm"
+        got = _seek_drain(acm.acm_open_file(path, device="cuda"), err, pre,
+                          tgt)
+        want = _seek_drain(acm.AcmStream(tio.FileSource(path),
+                                         synth_backend="host"), err, pre, tgt)
+        check(got == want, f"{name} ({pre}, {tgt}): card differs from host")
+    launches = dict(synth_cuda.launches)
+    print(f"phase 5: stream: {n} streams ({len(fixtures)} fixtures, "
+          f"{len(files)} full-size bench-mix files) equal to "
+          f"synth_backend='host' and the goldens; "
+          f"{len(fixtures) + len(files)} middle and back-to-0 seeks and "
+          f"{len(stale)} stale-amp-table seek sequences equal; launches "
+          f"{launches}")
+    for route, count in launches.items():
+        check(count > 0, f"the stream path launched {route} no time")
+    # whole-file decode speed, card against host, in turns
+    def decode(d, kind):
+        s = (acm.acm_open_decoder(d, device="cuda") if kind == "card" else
+             acm.AcmStream(tio.BytesSource(d), synth_backend="host"))
+        return s.read_loop(1 << 30)
+
+    clean = files[:-1]
+    samples = sum(len(decode(d, "host")) // 2 for d in clean)
+    runs: dict[str, list[float]] = {"card": [], "host": []}
+    for kind in ("card", "host", "host", "card", "card", "host"):
+        t0 = time.perf_counter()
+        for d in clean:
+            decode(d, kind)
+        runs[kind].append(samples / (time.perf_counter() - t0) / 1e6)
+    wall, ranked = _profiled(torch, lambda: [decode(d, "card")
+                                             for d in clean])
+    print_breakdown("phase 5: stream decode", wall, ranked, card)
+    print(f"phase 5: whole-file stream decode ({len(clean)} files, {samples} "
+          f"samples, open + read_loop): card {runs['card']} Msamples/s "
+          f"(median {statistics.median(runs['card'])}), host synth "
+          f"{runs['host']} Msamples/s (median "
+          f"{statistics.median(runs['host'])}) {card}")
+    return launches
+
+
+def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
+    """1,000 random windows of 1-50,000 frames over the corpus through
+    RandomAccessCorpus on the card, each equal to backend="host"."""
+    from libacm_tpu_torch.parallel import RandomAccessCorpus
+
+    rac = RandomAccessCorpus(corpus_files, device="cuda")
+    host = RandomAccessCorpus(corpus_files, backend="host")
+    rng = np.random.default_rng(5)
+    windows = []
+    for _ in range(1000):
+        i = int(rng.integers(0, len(corpus_files)))
+        total = host.pcm_total(i)  # builds (and caches) the index
+        rac.pcm_total(i)
+        windows.append((i, int(rng.integers(0, max(total, 1))),
+                        int(rng.integers(1, 50_001))))
+    synth_cuda.reset_launches()
+    t0 = time.perf_counter()
+    got = [rac.read(i, s, n) for i, s, n in windows]
+    t_card = time.perf_counter() - t0
+    launches = dict(synth_cuda.launches)
+    t0 = time.perf_counter()
+    want = [host.read(i, s, n) for i, s, n in windows]
+    t_host = time.perf_counter() - t0
+    frames = 0
+    for (i, s, n), g, w in zip(windows, got, want):
+        check(g.shape == w.shape and np.array_equal(g, w),
+              f"window ({i}, {s}, {n}): card differs from backend='host'")
+        frames += len(g)
+    print(f"phase 5: random access: 1000 windows ({frames} frames) over "
+          f"{len(corpus_files)} files equal to backend='host'; launches "
+          f"{launches}")
+    check(sum(launches.values()) > 0, "random access launched no kernel")
+    wall, ranked = _profiled(torch, lambda: [rac.read(*w)
+                                             for w in windows[:200]])
+    print_breakdown("phase 5: 200 random-access windows", wall, ranked, card)
+    print(f"phase 5: random access: card {1000 / t_card} segments/s, host "
+          f"{1000 / t_host} segments/s (warm indexes, host clock) {card}")
+    return launches
+
+
+def phase5_cli(synth_cuda) -> dict:
+    """acmtool -d -r -o in process on the card, equal to the goldens."""
+    from libacm_tpu_torch import cli
+
+    os.environ.pop("LIBACM_TPU_TORCH_DEVICE", None)  # the card
+    synth_cuda.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in CLI_FIXTURES:
+            src = ROOT / "tests" / "fixtures" / f"{name}.acm"
+            out = pathlib.Path(tmp) / f"{name}.raw"
+            so, se = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+                rc = cli.main(["-d", "-r", "-o", str(out), str(src)])
+            gold = ROOT / "tests" / "goldens"
+            check(rc == 0, f"acmtool -d {name} exited {rc}: {se.getvalue()}")
+            check(out.read_bytes() == (gold / f"{name}.raw").read_bytes(),
+                  f"acmtool -d -r {name}: differs from the golden .raw")
+            check(so.getvalue().replace(str(src), "%SRC%")
+                  == (gold / f"{name}.info").read_text(),
+                  f"acmtool -d {name}: info line differs from the golden")
+    launches = dict(synth_cuda.launches)
+    print(f"phase 5: CLI: acmtool -d -r -o on {', '.join(CLI_FIXTURES)} "
+          f"equal to the goldens; launches {launches}")
+    check(sum(launches.values()) > 0, "the CLI launched no kernel")
+    return launches
+
+
+def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> None:
+    """The kernel at the shapes the stream and read_segment give it (one
+    file per launch) against its plain version; CUDA-event times beside
+    the plain version's and the bound."""
+    for what, level, rows, nb in NEW_SHAPES:
+        k, v, w = _random_inputs(torch, dev, level, rows, 1, nb,
+                                 seed=level * 7 + nb)
+        route = ("synth_fused" if synth_cuda.fused_tile(level, rows, nb)
+                 else "synth_pass")
+        got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
+        want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
+        err = _max_err(torch, got, want, level)
+        check(err == 0, f"kernel disagrees at {level}/{rows} [1, {nb}]")
+        ms = _time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=20)
+        plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=5)
+        bms, by = bound(level, rows, 1, nb)
+        cfg = synth_cuda.fused_config(level, rows, 1, nb, dev)
+        shape = (f", tile {cfg['T']}, span {cfg['span']}, grid "
+                 f"{cfg['grid']}" if cfg else "")
+        print(f"phase 5: synthesis {what} {level}/{rows} [B=1, nb={nb}] "
+              f"{route}{shape}: kernel {ms} ms, plain {plain_ms} ms, bound "
+              f"{bms} ms ({by}), {bms / ms:.1%} of bound, max abs err {err} "
+              f"{card}")
+        del k, v, w, got, want
 
 
 def main() -> int:
@@ -402,6 +681,18 @@ def main() -> int:
         del k, v, w
     check(set(kern_rows) == set(main_launches),
           "a kernel route has no main-path shape to time")
+
+    # -- 5. reference API on the card ---------------------------------------
+    firsts = np.cumsum([0] + [m[1] for m in MIX])  # first file of a class
+    mix_files = [files[i] for i in firsts[:-1]] + [files[firsts[-1]]]
+    paths = {"corpus": main_launches}
+    paths["stream"] = phase5_stream(torch, synth_cuda, mix_files, card)
+    paths["random_access"] = phase5_random_access(torch, synth_cuda, files,
+                                                   card)
+    paths["cli"] = phase5_cli(synth_cuda)
+    phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card)
+    for route, row in kern_rows.items():
+        row["launches_by_path"] = {p: n[route] for p, n in paths.items()}
     print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")

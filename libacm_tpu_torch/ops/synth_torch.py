@@ -300,3 +300,45 @@ def synth_pcm_cols_blob(
         cls, *parts[1:7], vals, wrap0,
         level=level, rows=rows, batch=batch, nb=nb, backend=backend,
     )
+
+
+def decode_scan_result(scan, backend: str | None = None,
+                       device=None) -> np.ndarray:
+    """Host wrapper: ScanResult → int16 PCM words (numpy, unclamped).
+
+    Output covers the scanned blocks only; callers apply total_values /
+    channel clamping (stream layer). backend=None synthesizes on `device`
+    (None: the card, see device.resolve_device) through the kernel
+    wrapper — the CUDA kernel on a card, its plain version on the CPU —
+    and fetches; backend="host" asks for the native host synth and raises
+    without it. A stale-amp-table stream (scan.n_exceptions) always takes
+    the oracle: only its virtual table reproduces the reference exactly.
+    """
+    if backend not in (None, "host"):
+        raise ValueError(f"unknown synthesis backend {backend!r} (None "
+                         "synthesizes on the device, 'host' on the CPU)")
+    h = scan.header
+    nb = scan.n_blocks
+    if nb == 0:
+        return np.zeros(0, dtype=np.int16)
+    if scan.n_exceptions:
+        from ..scan import oracle as _oracle
+
+        return _oracle.words_to_pcm(_oracle.synth_all(scan), h.level)
+    if backend == "host":
+        from ..scan import native as _native
+
+        if not _native.available():
+            raise RuntimeError("native host synth unavailable")
+        pcm, _ = _native.synth_dense(scan.k, scan.val, h.level, h.rows)
+        return pcm.reshape(-1)
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    k = torch.from_numpy(np.ascontiguousarray(scan.k[:nb])).to(dev)
+    vals = torch.from_numpy(scan.val[:nb].astype(np.int32)).to(dev)
+    # the carry has h.wrapbuf_len words: none at level 0
+    wrap0 = torch.zeros((1, h.wrapbuf_len), dtype=torch.int32, device=dev)
+    pcm, _ = synthesize(k[None], vals[None], wrap0, level=h.level,
+                        rows=h.rows, backend="cuda")
+    return pcm[0].cpu().numpy().reshape(-1)

@@ -1,4 +1,5 @@
-"""Batched corpus decode (data-parallel over files) on one torch device."""
+"""Batched corpus decode (data-parallel over files) on one torch device,
+and O(segment) random access."""
 
 from .corpus import (
     CorpusConfig,
@@ -10,14 +11,20 @@ from .corpus import (
     decode_corpus_host,
     effective_stop,
 )
+from .random_access import (BlockIndex, RandomAccessCorpus, build_index,
+                            read_segment)
 
 __all__ = [
+    "BlockIndex",
     "CorpusConfig",
     "CorpusSummary",
     "DeviceCorpus",
     "FileResult",
+    "build_index",
     "decode_corpus",
     "decode_corpus_device",
     "decode_corpus_host",
     "effective_stop",
+    "RandomAccessCorpus",
+    "read_segment",
 ]

@@ -43,6 +43,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from ..device import Device
+from ..device import resolve_device as _resolve_device
 from ..format import (
     ACM_EXPECTED_EOF,
     ACM_ID,
@@ -58,7 +60,6 @@ from ..scan.oracle import BitReader, parse_header
 logger = logging.getLogger("libacm_tpu_torch.corpus")
 
 Source = Union[str, os.PathLike, bytes, bytearray]
-Device = Union[str, torch.device, None]
 
 
 @dataclasses.dataclass
@@ -172,17 +173,6 @@ def _pad_blocks(nb: int) -> int:
     if nb <= 32:
         return _round_up(nb, 8)
     return _round_up(nb, 32)
-
-
-def _resolve_device(device: Device) -> torch.device:
-    """The target device; None means the card. No card is an error, never
-    a quiet fall back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("decode on the card requested but CUDA is not "
-                           "available; pass device='cpu' to decode on the "
-                           "CPU")
-    return dev
 
 
 def _read_source(src: Source) -> bytes:
@@ -700,8 +690,9 @@ def decode_corpus_device(
 ) -> DeviceCorpus:
     """Decode a corpus; leave PCM on `device` (see DeviceCorpus).
 
-    `device=None` is the card (torch.device("cuda")); without one this
-    raises RuntimeError. Pass device="cpu" to decode on the CPU. Synthesis
+    `device=None` is the card (torch.device("cuda")), or the device named
+    by $LIBACM_TPU_TORCH_DEVICE; without a card this raises RuntimeError.
+    Pass device="cpu" to decode on the CPU. Synthesis
     is the CUDA kernel on a card and its plain torch version on the CPU.
 
     Buckets files by (level, rows, padded block capacity), then per chunk
@@ -978,7 +969,8 @@ def decode_corpus(
     """Decode a corpus of ACM/WAVC files; PCM lands on the host per file.
 
     backend="auto" (default) decodes on `device` and fetches: `device=None`
-    is the card, and without one this raises RuntimeError. With
+    is the card (or $LIBACM_TPU_TORCH_DEVICE), and without one this raises
+    RuntimeError. With
     device="cpu" it takes the fused native host decoder when that is
     built. backend="host" asks for the native host decoder and requires it.
     """

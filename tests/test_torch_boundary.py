@@ -2,7 +2,10 @@
 
 The port imports torch, never jax and nothing of libacm_tpu; the host
 layers it shares with the JAX package are byte-identical copies, which
-keeps the two scanners (and their oracle) in lockstep.
+keeps the two scanners (and their oracle) in lockstep. The probe drives
+the corpus, stream, random-access and CLI surfaces in a fresh process and
+imports the encoder, ingest and profiling modules, then checks what was
+loaded.
 """
 
 import pathlib
@@ -27,6 +30,24 @@ _PROBE = textwrap.dedent("""
     res = dc.to_results()
     assert all(r.ok for r in res) and dc.checksum() >= 0
     assert len(decode_corpus(files, device="cpu")) == 2
+
+    import contextlib, io, pathlib
+    from libacm_tpu_torch import acm_open_file, cli, encode, ingest
+    from libacm_tpu_torch.parallel import build_index, read_segment
+    from libacm_tpu_torch.utils import profiling
+
+    fx = pathlib.Path("tests/fixtures/speech_22k_mono.acm")
+    s = acm_open_file(fx, device="cpu")
+    head = s.read_loop(5000)
+    assert s.seek_pcm(1000) == 1000 and s.read_loop(200)
+    assert s.seek_pcm(0) == 0 and s.read_loop(5000) == head
+    data = fx.read_bytes()
+    seg = read_segment(data, build_index(data), 300, 700, device="cpu")
+    assert seg.tobytes() == head[600:2000]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert cli.main(["-i", str(fx)]) == 0
+    assert "A:7/16" in out.getvalue()
+    assert encode.encode_pcm and ingest.iter_pcm and profiling.trace
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "libacm_tpu")
                  or m.startswith(("jax.", "libacm_tpu.")))
@@ -42,7 +63,7 @@ def test_port_decodes_without_jax_or_the_jax_package():
     assert "LOADED []" in r.stdout
 
 
-@pytest.mark.parametrize("rel", ["format.py", "scan/oracle.py",
+@pytest.mark.parametrize("rel", ["format.py", "io.py", "scan/oracle.py",
                                  "scan/_scan.cpp", "testing.py"])
 def test_shared_host_layers_are_byte_identical(rel):
     assert ((ROOT / "libacm_tpu_torch" / rel).read_bytes()

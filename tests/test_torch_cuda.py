@@ -3,8 +3,12 @@
 Marked `cuda`: each test decides inside itself whether a card is present
 and skips when there is none (the CPU runs cover the plain version and a
 model of the kernel's tiling in test_torch_synth.py). On a machine with
-an H100 run `python -m pytest tests/test_torch_cuda.py`.
+an H100 run `python -m pytest --noconftest tests/test_torch_cuda.py`.
+The last tests drive the reference API (stream, read_segment,
+decode_scan_result) through the kernel against the native host synth.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -135,3 +139,80 @@ def test_kernel_matches_plain_random_geometries(seed):
         geom = (level, rows, B, nb)
         assert torch.equal(got_pcm, want_pcm), geom
         assert torch.equal(got_w, want_w), geom
+
+
+# -- the reference API on the card ---------------------------------------------
+
+_FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
+
+
+def _drain(s):
+    from libacm_tpu_torch import AcmException
+
+    out = bytearray()
+    while True:
+        try:
+            b = s.read_loop(1 << 16)
+        except AcmException:
+            continue  # keep reading past error events
+        if not b:
+            return bytes(out)
+        out += b
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.stem for p in _FIXTURES.glob("*.acm")))
+def test_stream_on_card_matches_host(name):
+    """Each fixture decodes through the kernel (one file per launch)
+    byte-equal to the native host synth, then again after a seek back."""
+    from libacm_tpu_torch import AcmStream, acm_open_file
+    from libacm_tpu_torch import io as tio
+
+    _card()
+    path = _FIXTURES / f"{name}.acm"
+    got = acm_open_file(path, device="cuda")
+    want = AcmStream(tio.FileSource(path), synth_backend="host")
+    assert _drain(got) == _drain(want)
+    assert got.seek_pcm(0) == want.seek_pcm(0)
+    assert _drain(got) == _drain(want)
+
+
+@pytest.mark.parametrize("level,rows,nb", [
+    (7, 16, 40), (4, 40, 30), (10, 4, 12), (3, 1, 50), (0, 256, 20),
+    (2, 2, 60)])
+def test_read_segment_on_card_matches_host(level, rows, nb):
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.parallel import build_index, read_segment
+
+    _card()
+    rng = np.random.default_rng(level * 7 + rows)
+    data = testing.speech_acm_bytes(rng, level=level, rows=rows,
+                                    n_blocks=nb)
+    idx = build_index(data)
+    total = min(idx.header.total_values, idx.words_avail)
+    sc.reset_launches()
+    for _ in range(40):
+        start = int(rng.integers(0, total))
+        n = int(rng.integers(1, 4 * idx.header.block_len))
+        got = read_segment(data, idx, start, n, device="cuda")
+        want = read_segment(data, idx, start, n, backend="host")
+        np.testing.assert_array_equal(got, want, err_msg=f"({start}, {n})")
+    assert sum(sc.launches.values()) >= 40
+
+
+def test_decode_scan_result_level0_zero_width_carry():
+    """Level 0: the carry has no words; the per-pass kernel takes a
+    [1, 0] wrap0 and the words equal the host synth."""
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.scan import native
+
+    _card()
+    data = testing.speech_acm_bytes(np.random.default_rng(3), level=0,
+                                    rows=2048, n_blocks=7)
+    scan = native.scan_bytes(data)
+    assert scan.header.wrapbuf_len == 0
+    sc.reset_launches()
+    got = st.decode_scan_result(scan, device="cuda")
+    assert sc.launches["synth_pass"] == 1
+    np.testing.assert_array_equal(got, st.decode_scan_result(scan,
+                                                             backend="host"))
