@@ -35,8 +35,35 @@ Phases (any failure exits non-zero, and no result line is printed):
             to the goldens.
             Then whole-file stream Msamples/s and segments per second, card
             against host, and the kernel's time at the shapes these paths
-            give it (B = 1) beside its plain version and its bound; last,
-            one JSON line of kernels.
+            give it (B = 1) beside its plain version and its bound.
+6. device lists, windows and processes, each part with the launch
+            counters reset just before it and read just after:
+            stream windows — one seeded 7/16 mono stream of STREAM_BLOCKS
+            blocks (longer than any file the games ship; see long_stream
+            for how it is built) through decode_stream_device(device=
+            "cuda", window_blocks=W) for a W that divides the block count
+            and one that does not, from a path and from a read()-only
+            object, and the full-file call: PCM, status and filler equal
+            to decode_corpus_host of the same bytes, one launch per
+            window, and no copy from the card while it decodes (the carry
+            is never fetched); a rows == 1 and a level-0 stream through
+            the per-pass route; a stale-amp-table stream through the host
+            fallback and through the ValueError;
+            carry-in — the kernel on [0, nb) in one launch equal to
+            [0, m) then [m, nb) with wrapf handed over on the card, both
+            equal to the plain version;
+            sharded corpus — phase 3's corpus through
+            decode_corpus_device(devices=[cuda:0, cuda:0]) (and over every
+            card where there are several): checksum() equal to phase 3's,
+            results equal to decode_corpus_host;
+            two processes — two ranks of tests/_torch_dist_worker.py over
+            gloo, each decoding its manifest shard on the card, totals
+            equal to the one-process summary.
+            Then stream Msamples/s per W, the kernel's time at [1, W]
+            with a non-zero carry, sharded against single-device corpus
+            Msamples/s; last, one JSON line of kernels.
+
+Phases 1-5 run at the depth they always had.
 
 The last line is {"ok": true, "device": {...}}. Needs no network; imports
 torch, numpy and libacm_tpu_torch only.
@@ -89,6 +116,18 @@ NEW_SHAPES = [("stream, whole file", 7, 16, 300),
               ("read_segment, 50,000 frames", 7, 16, 32),
               ("read_segment, short", 4, 40, 8),
               ("stream, rows == 1", 7, 1, 4800)]
+#: phase 6's long stream: blocks (7/16 mono: 41.9 M samples, 31.7 minutes
+#: at 22,050 Hz), the distinct encoded blocks it is drawn from, and the
+#: windows: one that divides the block count and one that does not
+STREAM_BLOCKS = 20480
+STREAM_DISTINCT = 800
+STREAM_WINDOWS = (2048, 3000)
+#: phase 6's per-pass streams: (what, level, rows, blocks, window)
+PASS_STREAMS = [("rows == 1", 7, 1, 4800, 512), ("level 0", 0, 2048, 400, 64)]
+#: phase 6's split launches: (level, rows, nb, blocks in the first launch)
+SPLITS = [(7, 16, 2048, 1000), (4, 40, 1200, 7), (10, 4, 150, 77),
+          (7, 1, 4800, 2400), (0, 2048, 400, 100)]
+
 #: phase 5's CLI fixtures: a fused, a level-0 and a rows == 1 stream
 CLI_FIXTURES = ("speech_22k_mono", "level0", "rows1")
 
@@ -522,6 +561,379 @@ def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> None:
         del k, v, w, got, want
 
 
+def long_stream(testing, build_index, seed: int, n_blocks: int,
+                distinct: int, level: int = 7, rows: int = 16) -> bytes:
+    """A seeded mono stream of n_blocks blocks without encoding them all.
+
+    The fixture encoder writes about 400 blocks a second, so `distinct`
+    + 1 blocks of the speech class are encoded once, cut apart at their
+    bit offsets (build_index), and n_blocks of them drawn from the seed
+    are joined bit by bit behind a fresh header. Blocks are
+    self-contained in the format, so the stream is valid; every junction
+    gives the filterbank another carry."""
+    rng = np.random.default_rng(seed)
+    base = testing.speech_acm_bytes(rng, level=level, rows=rows,
+                                    n_blocks=distinct + 1, base_pwr=5,
+                                    decay_cols=4.0)
+    pos = build_index(base).bitpos
+    check(len(pos) == distinct + 1, "long_stream: base stream did not scan")
+    bits = np.unpackbits(np.frombuffer(base, np.uint8), bitorder="little")
+    order = rng.integers(0, distinct, n_blocks)
+    body = np.concatenate([bits[pos[i]:pos[i + 1]] for i in order])
+    w = testing.BitWriter()
+    testing.write_header(w, n_blocks * (rows << level), 1, 22050, level,
+                         rows)
+    return w.getvalue() + np.packbits(body, bitorder="little").tobytes()
+
+
+class _ReadOnly:
+    """A read()-only source (a pipe's shape): no seek, no length."""
+
+    def __init__(self, data: bytes):
+        self._b = io.BytesIO(data)
+
+    def read(self, n: int = -1) -> bytes:
+        return self._b.read(n)
+
+
+def _stream_equal(pcm, meta, host, what: str) -> None:
+    """decode_stream_device's result ≡ the host decoder's FileResult."""
+    check(meta.status == host.status and meta.filler_words
+          == host.filler_words,
+          f"{what}: status/filler {(meta.status, meta.filler_words)} != host "
+          f"{(host.status, host.filler_words)}")
+    got = pcm.reshape(-1)[: len(host.pcm)].cpu().numpy()
+    check(got.shape == host.pcm.shape and np.array_equal(got, host.pcm),
+          f"{what}: PCM differs from the host decoder")
+
+
+def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
+    """The windowed stream at full width. Returns the launches of the
+    whole path, and of one decode for each (level, rows, W) shape."""
+    from libacm_tpu_torch.parallel import build_index
+
+    t0 = time.perf_counter()
+    data = long_stream(testing, build_index, 6, STREAM_BLOCKS,
+                       STREAM_DISTINCT)
+    t_build = time.perf_counter() - t0
+    host = corpus.decode_corpus_host([data])[0]
+    samples = len(host.pcm)
+    check(host.status == 0 and host.filler_words == 0
+          and samples == STREAM_BLOCKS * 2048,
+          "phase 6: the long stream does not decode cleanly on the host")
+    print(f"phase 6: long stream: {STREAM_BLOCKS} blocks, {samples} samples "
+          f"({samples / 22050 / 60:.1f} min at 22,050 Hz), "
+          f"{len(data) / 1e6:.1f} MB, built in {t_build:.1f} s from "
+          f"{STREAM_DISTINCT} encoded blocks")
+    path_launches = {"synth_fused": 0, "synth_pass": 0}
+    per_shape = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "long.acm"
+        path.write_bytes(data)
+        for W in STREAM_WINDOWS:
+            n_win = -(-STREAM_BLOCKS // W)
+            rates = []
+            for kind in ("path", "read()-only", "path", "read()-only"):
+                src = path if kind == "path" else _ReadOnly(data)
+                torch.cuda.synchronize()
+                synth_cuda.reset_launches()
+                t0 = time.perf_counter()
+                pcm, meta = corpus.decode_stream_device(
+                    src, device=dev, window_blocks=W)
+                torch.cuda.synchronize()
+                rates.append(samples / (time.perf_counter() - t0) / 1e6)
+                launches = dict(synth_cuda.launches)
+                check(launches == {"synth_fused": n_win, "synth_pass": 0},
+                      f"window {W} from a {kind}: launches {launches}, "
+                      f"expected one fused launch for each of {n_win} "
+                      "windows")
+                check(tuple(pcm.shape) == (n_win * W, 2048)
+                      and pcm.device.type == "cuda",
+                      f"window {W}: PCM {tuple(pcm.shape)} on {pcm.device}")
+                _stream_equal(pcm, meta, host, f"window {W} from a {kind}")
+                for r in path_launches:
+                    path_launches[r] += launches[r]
+                per_shape[(7, 16, W)] = launches
+                del pcm
+            print(f"phase 6: stream windows W={W}: {n_win} windows, one "
+                  f"fused launch each, from a path and a read()-only "
+                  f"object equal to decode_corpus_host; {rates} Msamples/s "
+                  f"(median {statistics.median(rates)}, host clock) {card}")
+        # no copy from the card while the stream decodes: the carry stays
+        out = []
+        wall, ranked = _profiled(torch, lambda: out.append(
+            corpus.decode_stream_device(path, device=dev,
+                                        window_blocks=STREAM_WINDOWS[0])))
+        print_breakdown(f"phase 6: stream W={STREAM_WINDOWS[0]}", wall,
+                        ranked, card)
+        fetched = [key for _, _, key in ranked if "DtoH" in key]
+        check(not fetched, f"the windowed stream copied from the card: "
+              f"{fetched}")
+        if ranked:
+            print("phase 6: no device-to-host copy in the profiled "
+                  "windowed decode: the carry was never fetched")
+        _stream_equal(*out[0], host, "profiled windowed decode")
+        del out
+        synth_cuda.reset_launches()
+        t0 = time.perf_counter()
+        pcm, meta = corpus.decode_stream_device(path, device=dev)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        check(dict(synth_cuda.launches) == {"synth_fused": 1,
+                                            "synth_pass": 0},
+              f"full-file stream: launches {synth_cuda.launches}")
+        _stream_equal(pcm, meta, host, "full-file stream")
+        print(f"phase 6: full-file call (one window of {STREAM_BLOCKS} "
+              f"blocks) equal to both: {samples / t_full / 1e6} Msamples/s "
+              f"{card}")
+        del pcm
+
+    rng = np.random.default_rng(8)
+    for what, level, rows, nb, W in PASS_STREAMS:
+        d = testing.speech_acm_bytes(rng, level=level, rows=rows,
+                                     n_blocks=nb)
+        h = corpus.decode_corpus_host([d])[0]
+        synth_cuda.reset_launches()
+        pcm, meta = corpus.decode_stream_device(_ReadOnly(d), device=dev,
+                                                window_blocks=W)
+        torch.cuda.synchronize()
+        launches = dict(synth_cuda.launches)
+        n_win = -(-nb // W)
+        check(launches == {"synth_fused": 0,
+                           "synth_pass": n_win * max(level, 1)},
+              f"{what} stream: launches {launches}")
+        _stream_equal(pcm, meta, h, f"{what} stream")
+        print(f"phase 6: {what} stream {level}/{rows} x {nb} blocks, "
+              f"W={W}: equal to decode_corpus_host; launches {launches}")
+        for r in path_launches:
+            path_launches[r] += launches[r]
+        per_shape[(level, rows, W)] = launches
+
+    stale = (ROOT / "tests" / "fixtures"
+             / "stale_table_fuzz_2103.acm").read_bytes()
+    h = corpus.decode_corpus_host([stale])[0]
+    for W in (None, 2):
+        pcm, meta = corpus.decode_stream_device(stale, device=dev,
+                                                window_blocks=W)
+        check(pcm.device.type == "cuda", "stale stream: PCM not on the card")
+        _stream_equal(pcm, meta, h, f"stale-amp-table stream W={W}")
+    try:
+        corpus.decode_stream_device(_ReadOnly(stale), device=dev,
+                                    window_blocks=2)
+    except ValueError as exc:
+        check("stale-amp-table" in str(exc), f"unexpected ValueError: {exc}")
+    else:
+        raise SmokeFailure("a stale-amp-table stream from a read()-only "
+                           "source did not raise ValueError")
+    print("phase 6: stale-amp-table stream: host fallback equal to "
+          "decode_corpus_host (full-file and windowed); ValueError from a "
+          "read()-only source")
+    return {"launches": path_launches, "per_shape": per_shape}
+
+
+def phase6_carry(torch, synth_cuda, synth_torch, dev) -> None:
+    """One launch over [0, nb) ≡ two launches with wrapf handed over on
+    the card ≡ the plain version: the non-zero wrap0 at B = 1 that the
+    window path rests on."""
+    for level, rows, nb, m in SPLITS:
+        k, v, w = _random_inputs(torch, dev, level, rows, 1, nb,
+                                 seed=level * 17 + m)
+        whole = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
+        a = synth_cuda.synth_pcm_batch(
+            k[:, :m].contiguous(), v[:, :m].contiguous(), w, level=level,
+            rows=rows)
+        b = synth_cuda.synth_pcm_batch(
+            k[:, m:].contiguous(), v[:, m:].contiguous(), a[1], level=level,
+            rows=rows)
+        torch.cuda.synchronize()
+        want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
+        split = (torch.cat([a[0], b[0]], dim=1), b[1])
+        err = max(_max_err(torch, whole, want, level),
+                  _max_err(torch, split, want, level))
+        print(f"phase 6: carry-in {level}/{rows} [1, {nb}] = [1, {m}] + "
+              f"[1, {nb - m}]: max abs err {err} (tolerance 0)")
+        check(err == 0, f"split launches disagree at {level}/{rows}")
+        del k, v, w, whole, a, b, want, split
+
+
+def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
+                   samples, card) -> dict:
+    """Phase 3's corpus over a device list: one card named twice (the
+    groups share a pool key: grouping, buffer holds, result order), and
+    over every card where there are several. Returns the launches of the
+    one-card-twice decode."""
+    def check_results(dc, what):
+        check(dc.block_until_ready().checksum() == checksum3,
+              f"{what}: checksum {dc.checksum():#010x} != single-device "
+              f"{checksum3:#010x}")
+        for g, h in zip(dc.to_results(), host):
+            check(g.index == h.index and g.status == h.status
+                  and g.filler_words == h.filler_words,
+                  f"{what}: file {h.index} status/filler differs")
+            check((g.pcm is None) == (h.pcm is None)
+                  and (h.pcm is None or np.array_equal(g.pcm, h.pcm)),
+                  f"{what}: file {h.index} PCM differs from the host decode")
+
+    twice = [torch.device("cuda", 0)] * 2
+    synth_cuda.reset_launches()
+    dc = corpus.decode_corpus_device(files, devices=twice)
+    dc.block_until_ready()
+    launches = dict(synth_cuda.launches)
+    check_results(dc, "devices=[cuda:0, cuda:0]")
+    print(f"phase 6: sharded corpus over [cuda:0, cuda:0]: "
+          f"{len(dc._buckets)} groups, checksum {checksum3:#010x} equal to "
+          f"the single-device one, {len(files)} files equal to "
+          f"decode_corpus_host; launches {launches}")
+    for route, n in launches.items():
+        check(n > 0, f"the sharded corpus launched {route} no time")
+    del dc
+    n_cards = torch.cuda.device_count()
+    print(f"phase 6: cards: {n_cards}")
+    lists = {"[cuda:0, cuda:0]": twice}
+    if n_cards > 1:
+        every = [torch.device("cuda", i) for i in range(n_cards)]
+        dc = corpus.decode_corpus_device(files, devices=every)
+        check_results(dc, f"devices over {n_cards} cards")
+        used = {b.pcm.device.index for b in dc._buckets}
+        check(used == set(range(n_cards)), f"cards used: {sorted(used)}")
+        print(f"phase 6: sharded corpus over {n_cards} distinct cards: "
+              "checksum and results equal")
+        lists[f"{n_cards} cards"] = every
+        del dc
+    else:
+        print("phase 6: one card: decode over distinct cards not verified")
+    runs: dict[str, list[float]] = {}
+    for what in ["single"] + list(lists) * 2 + ["single"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kw = ({"device": "cuda"} if what == "single"
+              else {"devices": lists[what]})
+        corpus.decode_corpus_device(files, **kw).block_until_ready()
+        runs.setdefault(what, []).append(
+            samples / (time.perf_counter() - t0) / 1e6)
+    print(f"phase 6: corpus decode {samples} samples, in turns: {runs} "
+          f"Msamples/s (host clock) {card}")
+    return launches
+
+
+def phase6_processes(files, summary3, checksum3) -> dict:
+    """Two ranks, each joining over gloo, decoding its manifest shard on
+    the card and all-reducing the summary; totals equal to phase 3's.
+    Returns the ranks' launches, added up."""
+    import socket
+
+    worker = ROOT / "tests" / "_torch_dist_worker.py"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ)
+    env.pop("LIBACM_TPU_TORCH_DEVICE", None)  # the card
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, data in enumerate(files):
+            (pathlib.Path(tmp) / f"f{i:03d}.acm").write_bytes(data)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(worker), coord, "2", str(r), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for r in range(2)]
+        outs = []
+        try:
+            deadline = time.monotonic() + 300
+            for r, p in enumerate(procs):
+                try:
+                    out, err = p.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    raise SmokeFailure(f"rank {r} timed out") from None
+                check(p.returncode == 0,
+                      f"rank {r} exited {p.returncode}: {err[-2000:]}")
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+
+    def line(out, tag):
+        for ln in out.splitlines():
+            if ln.startswith(tag + " "):
+                return json.loads(ln[len(tag) + 1:])
+        raise SmokeFailure(f"a rank printed no {tag} line")
+
+    totals = line(outs[0], "RESULT")
+    shards = [line(o, "SHARD") for o in outs]
+    for key in ("n_files", "n_ok", "n_failed", "n_partial", "samples"):
+        check(totals[key] == getattr(summary3, key),
+              f"two processes: {key} {totals[key]} != one process "
+              f"{getattr(summary3, key)}")
+    check([s["files"] for s in shards]
+          == [(len(files) + 1) // 2, len(files) // 2],
+          f"two processes: shard sizes {[s['files'] for s in shards]}")
+    check(sum(s["checksum"] for s in shards) & 0xFFFFFFFF == checksum3,
+          "two processes: shard checksums do not add up to one process's")
+    launches = {"synth_fused": 0, "synth_pass": 0}
+    for s in shards:
+        check(s["device"].startswith("cuda"),
+              f"a rank decoded on {s['device']}, not on the card")
+        for route in launches:
+            launches[route] += s["launches"][route]
+    check(all(launches.values()),
+          f"two processes: launches {launches}: a route ran no time")
+    print(f"phase 6: two processes over gloo: shards "
+          f"{[s['files'] for s in shards]} files on "
+          f"{[s['device'] for s in shards]}, totals equal to one process "
+          f"({totals['samples']} samples), checksums add up; launches "
+          f"{launches}; {wall:.1f} s with start-up")
+    return launches
+
+
+def phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
+                       st6) -> list:
+    """The kernel at the shapes a stream window gives it, [1, W] with a
+    non-zero carry-in, against its plain version: time beside the plain
+    version's and the bound. One JSON row per shape; its launches are
+    those of one decode of that stream."""
+    shapes = [("stream window", 7, 16, W) for W in STREAM_WINDOWS]
+    shapes += [(f"stream window, {what}", level, rows, W)
+               for what, level, rows, _, W in PASS_STREAMS]
+    rows_out = []
+    for what, level, rows, W in shapes:
+        k, v, w = _random_inputs(torch, dev, level, rows, 1, W,
+                                 seed=level * 5 + W)
+        route = ("synth_fused" if synth_cuda.fused_tile(level, rows, W)
+                 else "synth_pass")
+        got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
+        want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
+        err = _max_err(torch, got, want, level)
+        check(err == 0, f"kernel disagrees at {level}/{rows} [1, {W}]")
+        del got, want
+        ms = _time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=20)
+        plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=5)
+        bms, by = bound(level, rows, 1, W)
+        cfg = synth_cuda.fused_config(level, rows, 1, W, dev)
+        shape = (f", tile {cfg['T']}, span {cfg['span']}, grid "
+                 f"{cfg['grid']}" if cfg else "")
+        print(f"phase 6: synthesis {what} {level}/{rows} [B=1, nb={W}], "
+              f"non-zero carry-in, {route}{shape}: kernel {ms} ms, plain "
+              f"{plain_ms} ms, bound {bms} ms ({by}), {bms / ms:.1%} of "
+              f"bound, max abs err {err} {card}")
+        rows_out.append({
+            "name": f"{route} ({what}, W={W})", "route": "cuda",
+            "source": "libacm_tpu_torch/csrc/synth.cu",
+            "replaces": "libacm_tpu/ops/synth_pallas.py:72",
+            "launches": st6["per_shape"][(level, rows, W)][route],
+            "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "shape": f"level {level}, rows {rows}, B 1, nb {W}",
+        })
+        del k, v, w
+    return rows_out
+
+
 def main() -> int:
     import torch
 
@@ -609,8 +1021,9 @@ def main() -> int:
     print(f"phase 3: decode_corpus_host ({os.cpu_count()} threads) "
           f"{samples / t_host / 1e6} Msamples/s (host clock)")
     n_checked = check_corpus(native, files, dc, host)
+    checksum3, summary3 = dc.checksum(), dc.summary
     print(f"phase 3: {n_checked} files equal to decode_corpus_host; "
-          f"checksum {dc.checksum():#010x} equal to the host sum")
+          f"checksum {checksum3:#010x} equal to the host sum")
     del dc
 
     # -- 4. numbers ---------------------------------------------------------
@@ -691,9 +1104,20 @@ def main() -> int:
                                                    card)
     paths["cli"] = phase5_cli(synth_cuda)
     phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card)
+
+    # -- 6. device lists, windows, processes --------------------------------
+    st6 = phase6_stream(torch, synth_cuda, corpus, testing, "cuda", card)
+    paths["stream_windows"] = st6["launches"]
+    phase6_carry(torch, synth_cuda, synth_torch, dev)
+    paths["sharded_corpus"] = phase6_sharded(
+        torch, synth_cuda, corpus, files, host, checksum3, samples, card)
+    paths["two_processes"] = phase6_processes(files, summary3, checksum3)
     for route, row in kern_rows.items():
         row["launches_by_path"] = {p: n[route] for p, n in paths.items()}
-    print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]}))
+    rows6 = phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
+                               st6)
+    print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]
+                      + rows6}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {

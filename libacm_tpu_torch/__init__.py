@@ -5,7 +5,7 @@ reference the port is held to bit for bit. The port imports torch, never
 jax, and nothing of `libacm_tpu`: the host layers it needs are its own
 copies.
 
-Layers ported so far:
+Layers:
   - `format`   — on-disk format model + error taxonomy (copy)
   - `io`       — pluggable host IO, WAV writer, header patcher (copy)
   - `scan`     — serial bitstream front-end: C++ scanner + NumPy oracle (copy)
@@ -14,8 +14,14 @@ Layers ported so far:
                  unpack (`packing`) and the hand-written CUDA kernel
                  (`synth_cuda`, source in `csrc/synth.cu`)
   - `stream`   — reference-compatible streaming API (open/read/seek/info)
-  - `parallel` — batched corpus decode with PCM left on the device, and
+  - `parallel` — batched corpus decode with PCM left on the device (one
+                 device or files sharded over a list), one stream decoded
+                 in windows with its carry kept on the device
+                 (`decode_stream_device`), multi-process sharding on
+                 torch.distributed (`parallel.distributed`), and
                  O(segment) random access
+  - `device`   — `resolve_device`, `resolve_devices`, `make_mesh`: where
+                 entry points run
   - `cli`      — the acmtool command-line tool
   - `encode`   — the encoder (numpy, or float32 torch on the device)
   - `ingest`   — corpus iterators and jobs for data pipelines

@@ -70,8 +70,15 @@ _LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _LOCK:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(route: str) -> None:
+    # dispatch threads of several decodes may launch at once
+    with _LOCK:
+        launches[route] += 1
 
 
 def _nvcc() -> str:
@@ -287,7 +294,7 @@ def synth_pcm_batch(
             if rc:
                 raise RuntimeError(f"synth_fused_kernel launch failed: "
                                    f"cudaError {rc}")
-            launches["synth_fused"] += 1
+            _count("synth_fused")
             return pcm, wrapf
         L = nb * n
         grid_x = min(-(-L // _PASS_THREADS), _MAX_GRID_X)
@@ -307,7 +314,7 @@ def synth_pcm_batch(
             if rc:
                 raise RuntimeError(f"synth_pass_kernel launch failed (pass "
                                    f"{p}): cudaError {rc}")
-            launches["synth_pass"] += 1
+            _count("synth_pass")
             src = dst
             off += 2 * (cols >> (p + 1))
     return pcm, wrapf

@@ -192,6 +192,32 @@ def synth_pcm_packed(
     return synthesize(k, vals, wrap0, level=level, rows=rows, backend=backend)
 
 
+def unpack_cols(
+    cls: torch.Tensor,  # uint8 [batch, nb, ceil(cols/4)] 2-bit class codes
+    pay4: torch.Tensor, pay8: torch.Tensor, pay16: torch.Tensor,
+    wid4: torch.Tensor, wid8: torch.Tensor, wid16: torch.Tensor,
+    *,
+    level: int,
+    rows: int,
+    batch: int,
+    nb: int,
+) -> torch.Tensor:
+    """Coefficients int16 [batch, nb, rows, cols] from the exact-width
+    per-column wire (scanner v2): ops.packing.unpack_columns as tensor ops
+    on the wire's device."""
+    from .packing import unpack_columns
+
+    cols = 1 << level
+    shifts = torch.arange(4, dtype=torch.int32, device=cls.device) * 2
+    codes = (cls.to(torch.int32)[..., None] >> shifts) & 3
+    codes = codes.reshape(batch, nb, -1)[..., :cols]
+    k_cols = unpack_columns(
+        codes.reshape(batch * nb * cols), pay4, pay8, pay16,
+        wid4, wid8, wid16, rows=rows,
+    )  # [batch*nb*cols, rows]
+    return k_cols.reshape(batch, nb, cols, rows).permute(0, 1, 3, 2).contiguous()
+
+
 def synth_pcm_cols(
     cls: torch.Tensor,  # uint8 [batch, nb, ceil(cols/4)] 2-bit class codes
     pay4: torch.Tensor, pay8: torch.Tensor, pay16: torch.Tensor,
@@ -205,23 +231,11 @@ def synth_pcm_cols(
     nb: int,
     backend: str = "torch",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched synth from the exact-width per-column wire (scanner v2).
-
-    Unpack (ops.packing.unpack_columns) runs as tensor ops on the wire's
-    device; the filterbank is the plain version (backend="torch") or the
-    CUDA kernel (backend="cuda").
-    """
-    from .packing import unpack_columns
-
-    cols = 1 << level
-    shifts = torch.arange(4, dtype=torch.int32, device=cls.device) * 2
-    codes = (cls.to(torch.int32)[..., None] >> shifts) & 3
-    codes = codes.reshape(batch, nb, -1)[..., :cols]
-    k_cols = unpack_columns(
-        codes.reshape(batch * nb * cols), pay4, pay8, pay16,
-        wid4, wid8, wid16, rows=rows,
-    )  # [batch*nb*cols, rows]
-    k = k_cols.reshape(batch, nb, cols, rows).permute(0, 1, 3, 2).contiguous()
+    """Batched synth from the exact-width per-column wire: unpack_cols,
+    then the filterbank — the plain version (backend="torch") or the CUDA
+    kernel (backend="cuda")."""
+    k = unpack_cols(cls, pay4, pay8, pay16, wid4, wid8, wid16,
+                    level=level, rows=rows, batch=batch, nb=nb)
     return synthesize(k, vals, wrap0, level=level, rows=rows, backend=backend)
 
 
@@ -264,6 +278,34 @@ def _bytes_le(b: torch.Tensor, n: int) -> torch.Tensor:
     return u.to(torch.int32)
 
 
+def unpack_cols_blob(
+    blob: torch.Tensor,  # uint8 [total]: all wire sections coalesced
+    *,
+    level: int,
+    rows: int,
+    batch: int,
+    nb: int,
+    lens: tuple[int, int, int, int, int, int],
+    has_wrap: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(k int16 [batch, nb, rows, cols], vals int32 [batch, nb], the
+    blob's wrap0 int32 [batch, 2*cols-2] or None) from ONE coalesced wire
+    blob, sliced at the offsets of cols_blob_layout. vals (uint16) and
+    wrap0 (int32) are reassembled from little-endian bytes."""
+    cols = 1 << level
+    secs, total = cols_blob_layout(level, batch, nb, lens, has_wrap=has_wrap)
+    if tuple(blob.shape) != (total,):
+        raise ValueError(f"wire blob has shape {tuple(blob.shape)}, "
+                         f"layout needs ({total},)")
+    parts = [blob[o : o + n] for o, n in secs]
+    k = unpack_cols(parts[0].reshape(batch, nb, (cols + 3) // 4),
+                    *parts[1:7], level=level, rows=rows, batch=batch, nb=nb)
+    vals = _bytes_le(parts[7], 2).reshape(batch, nb)
+    wrap0 = (_bytes_le(parts[8], 4).reshape(batch, 2 * cols - 2)
+             if has_wrap else None)
+    return k, vals, wrap0
+
+
 def synth_pcm_cols_blob(
     blob: torch.Tensor,  # uint8 [total]: all wire sections coalesced
     wrap0: torch.Tensor | None = None,  # int32 [batch, 2*cols-2] carry-in
@@ -278,28 +320,15 @@ def synth_pcm_cols_blob(
     """synth_pcm_cols over ONE coalesced uint8 wire blob.
 
     The host packs a chunk's whole wire into a single buffer so it crosses
-    to the device in one copy; the sections are sliced back out here.
-    vals (uint16) and wrap0 (int32) are reassembled from little-endian
-    bytes. An explicit wrap0 tensor replaces the blob's wrap section,
-    which must then be absent.
+    to the device in one copy; the sections are sliced back out here
+    (unpack_cols_blob). An explicit wrap0 tensor replaces the blob's wrap
+    section, which must then be absent.
     """
-    cols = 1 << level
-    stride = (cols + 3) // 4
-    wlen = 2 * cols - 2
-    secs, total = cols_blob_layout(level, batch, nb, lens,
-                                   has_wrap=wrap0 is None)
-    if tuple(blob.shape) != (total,):
-        raise ValueError(f"wire blob has shape {tuple(blob.shape)}, "
-                         f"layout needs ({total},)")
-    parts = [blob[o : o + n] for o, n in secs]
-    cls = parts[0].reshape(batch, nb, stride)
-    vals = _bytes_le(parts[7], 2).reshape(batch, nb)
-    if wrap0 is None:
-        wrap0 = _bytes_le(parts[8], 4).reshape(batch, wlen)
-    return synth_pcm_cols(
-        cls, *parts[1:7], vals, wrap0,
-        level=level, rows=rows, batch=batch, nb=nb, backend=backend,
-    )
+    k, vals, blob_wrap = unpack_cols_blob(
+        blob, level=level, rows=rows, batch=batch, nb=nb, lens=lens,
+        has_wrap=wrap0 is None)
+    return synthesize(k, vals, blob_wrap if wrap0 is None else wrap0,
+                      level=level, rows=rows, backend=backend)
 
 
 def decode_scan_result(scan, backend: str | None = None,

@@ -1,6 +1,7 @@
 """Corpus-scale batched decode with PCM left on the device.
 
-Counterpart of `libacm_tpu/parallel/corpus.py` for one torch device:
+Counterpart of `libacm_tpu/parallel/corpus.py` for one torch device or a
+list of them (`devices=[...]`; torch has no mesh, the list is the mesh):
 
   host:   read each file's header, bucket files by (level, rows, padded
           block count) — the shape key — and for each chunk of a bucket run
@@ -22,6 +23,20 @@ Counterpart of `libacm_tpu/parallel/corpus.py` for one torch device:
 `decode_corpus` returns per-file host results: decoded on the card and
 fetched, or, when the caller asks for the CPU, from the fused native host
 decoder.
+
+With a device list, each chunk's files are cut into one contiguous group
+per device; every group is scanned on its own (payload offsets restart per
+group), coalesced into its own blob, copied to its own device and decoded
+there: no collectives, and no device ever reads another's wire. What the
+JAX package needs only for `shard_map` is left out: one blob layout for
+all shards, every group padded to the same file count, payloads cut to a
+common 4096-rounded length. Here a group may be shorter than the others,
+or empty.
+
+`decode_stream_device` decodes ONE stream through the same pipeline in
+windows of W blocks, the filterbank carry handed from window to window on
+the device, and over a device list with each window's blocks cut into one
+span per device.
 
 Per-file error/EOF semantics mirror the reference *CLI* consumer
 (`acmtool.c:269-310`): decode errors are swallowed whenever the 8 KiB
@@ -45,11 +60,13 @@ import torch
 
 from ..device import Device
 from ..device import resolve_device as _resolve_device
+from ..device import resolve_devices as _resolve_devices
 from ..format import (
     ACM_EXPECTED_EOF,
     ACM_ID,
     ACMInfo,
     AcmError,
+    AcmException,
     AcmHeader,
     cli_total_bytes as _cli_total_bytes,
     resolve_channels,
@@ -326,11 +343,13 @@ class CorpusSummary:
 
 
 class DeviceCorpus:
-    """Decoded corpus with PCM left on the device."""
+    """Decoded corpus with PCM left on the device, or on the devices of a
+    list: each chunk's tensor lies where its group was decoded."""
 
-    def __init__(self, n_files: int, device: torch.device):
+    def __init__(self, n_files: int, devices: Sequence[torch.device]):
         self._n = n_files
-        self.device = device
+        #: the devices the corpus was decoded over, as the caller gave them
+        self.devices = list(devices)
         self._buckets: list[_BucketOut] = []
         self._failed: dict[int, FileResult] = {}
         self.summary = CorpusSummary(n_files=n_files)
@@ -345,10 +364,18 @@ class DeviceCorpus:
 
     # -- consumption ---------------------------------------------------------
 
+    @property
+    def device(self) -> torch.device:
+        """The first device of the list (the only one of a single-device
+        decode)."""
+        return self.devices[0]
+
     def block_until_ready(self) -> "DeviceCorpus":
-        """Wait until every queued kernel on the device has finished."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait until every queued kernel on every device used has
+        finished."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     def checksum(self) -> int:
@@ -357,28 +384,33 @@ class DeviceCorpus:
         Padded rows/blocks are masked out (a padded all-zero block still
         synthesizes nonzero PCM via the rounding bias and inherited
         carry), so the digest depends only on corpus content — the same
-        value for any chunk_files or backend. The int64 sum taken & 0xFFFFFFFF
-        equals the JAX package's wrapped int32 sum modulo 2^32.
+        value for any chunk_files, backend or device list. Each device
+        sums its own chunks and the per-device sums (one scalar each) add
+        on the host. The int64 sum taken & 0xFFFFFFFF equals the JAX
+        package's wrapped int32 sum modulo 2^32.
         """
-        if not self._buckets:
-            return 0
-        tot = torch.zeros((), dtype=torch.int64, device=self.device)
+        tots: dict[torch.device, torch.Tensor] = {}
         for b in self._buckets:
+            dev = b.pcm.device
             ng = np.zeros(b.pcm.shape[0], dtype=np.int64)
             for j, e in enumerate(b.entries):
                 ng[j] = min(e.n_good, b.pcm.shape[1])
-            mask = (torch.arange(b.pcm.shape[1], device=self.device)[None, :]
-                    < torch.from_numpy(ng).to(self.device)[:, None])
+            mask = (torch.arange(b.pcm.shape[1], device=dev)[None, :]
+                    < torch.from_numpy(ng).to(dev)[:, None])
             per_block = b.pcm.sum(dim=2, dtype=torch.int64)
-            tot += torch.where(mask, per_block, 0).sum()
-        return int(tot.item()) & 0xFFFFFFFF
+            part = torch.where(mask, per_block, 0).sum()
+            tots[dev] = tots[dev] + part if dev in tots else part
+        return sum(int(t.item()) for t in tots.values()) & 0xFFFFFFFF
 
     def device_arrays(self) -> list[tuple[list[int], torch.Tensor]]:
-        """[(file_indices, int16 pcm [B, nb, block_len])] per chunk."""
+        """[(file_indices, int16 pcm [B, nb, block_len])] per chunk (per
+        device group of a chunk), each tensor on the device it was decoded
+        on."""
         return [([e.index for e in b.entries], b.pcm) for b in self._buckets]
 
     def to_results(self) -> list[FileResult]:
-        """Fetch PCM to host and apply per-file reference stop semantics."""
+        """Fetch PCM to host and apply per-file reference stop semantics;
+        results are in source order whatever the grouping."""
         results: list[FileResult | None] = [None] * self._n
         for i, r in self._failed.items():
             results[i] = r
@@ -531,6 +563,18 @@ class _WireBufs:
         self.copied = None
 
 
+class _NeverDone:
+    """Placeholder future: pins a _WireBufs as in use between its scan and
+    the attachment of the real dispatch future."""
+
+    @staticmethod
+    def done() -> bool:
+        return False
+
+
+_SCAN_HOLD = _NeverDone()
+
+
 def _acquire_wire_bufs(b: int, nb: int, level: int, rows: int,
                        device: torch.device) -> _WireBufs:
     # torch.from_numpy aliases host memory, and .to("cpu") keeps the alias,
@@ -658,31 +702,46 @@ def _coalesce_wire(arrays, wirebufs=None) -> tuple[np.ndarray, tuple]:
     return blob[:total], lens
 
 
-def _dispatch_cols_wire(arrays, chunk, level: int, rows: int, nb: int,
-                        wirebufs: _WireBufs,
-                        device: torch.device) -> _BucketOut:
-    """Device half: copy the coalesced wire blob to the device and run
-    the slice + unpack + synthesis there (the kernel wrapper: the CUDA
-    kernel on a card, its plain version on the CPU)."""
+def _dispatch_cols_wire(groups, level: int, rows: int,
+                        nb: int) -> list[_BucketOut]:
+    """Device half of one chunk: for each (files, wire arrays, wire
+    buffers, device) group, copy the coalesced wire blob to its device
+    and run the slice + unpack + synthesis there (the kernel wrapper: the
+    CUDA kernel on a card, its plain version on the CPU). The kernels of
+    one group are queued before the next group's copy starts, so distinct
+    devices work side by side."""
     from ..ops.synth_torch import synth_pcm_cols_blob
 
-    blob, lens = _coalesce_wire(arrays, wirebufs)
-    dev = torch.from_numpy(blob).to(device)
-    if device.type == "cuda":
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(device))
-        wirebufs.copied = ev  # pool reuse waits for this copy
-    pcm, _ = synth_pcm_cols_blob(
-        dev, level=level, rows=rows, batch=len(chunk), nb=nb,
-        backend="cuda", lens=lens,
-    )
-    return _BucketOut(level=level, rows=rows, entries=chunk, pcm=pcm)
+    outs = []
+    for chunk, arrays, wirebufs, device in groups:
+        blob, lens = _coalesce_wire(arrays, wirebufs)
+        dev = torch.from_numpy(blob).to(device)
+        if device.type == "cuda":
+            # on the stream of the device the blob was copied to
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(device))
+            wirebufs.copied = ev  # pool reuse waits for this copy
+        pcm, _ = synth_pcm_cols_blob(
+            dev, level=level, rows=rows, batch=len(chunk), nb=nb,
+            backend="cuda", lens=lens,
+        )
+        outs.append(_BucketOut(level=level, rows=rows, entries=chunk,
+                               pcm=pcm))
+    return outs
+
+
+def _shard(chunk: list, n: int) -> list[list]:
+    """Contiguous groups of ceil(len/n) files, one per device; trailing
+    groups may be shorter or empty."""
+    per = -(-len(chunk) // n)
+    return [chunk[s * per : (s + 1) * per] for s in range(n)]
 
 
 def decode_corpus_device(
     sources: Sequence[Source],
     *,
     device: Device = None,
+    devices: Sequence[Device] | None = None,
     force_chans: int = 0,
     chunk_files: int | None = None,
     pack: bool = True,
@@ -695,11 +754,20 @@ def decode_corpus_device(
     Pass device="cpu" to decode on the CPU. Synthesis
     is the CUDA kernel on a card and its plain torch version on the CPU.
 
+    `devices=[...]` (device.make_mesh, or any list; a device may repeat)
+    shards the files over the list instead: `chunk_files` then counts
+    files per device, each chunk is cut into one contiguous group per
+    device, and every group is decoded on its own device with no
+    collectives.
+
     Buckets files by (level, rows, padded block capacity), then per chunk
     of `chunk_files` files: host scan, copy, synthesis — successive chunks
     pipeline host scan against the copy and the device work.
     """
-    dev = _resolve_device(device)
+    if devices is not None and device is not None:
+        raise ValueError("pass device or devices, not both")
+    devs = _resolve_devices(device if devices is None else devices)
+    n_shards = len(devs)
     if config is not None:
         if config.backend != "auto":
             raise ValueError(f"decode_corpus_device takes backend 'auto' "
@@ -708,7 +776,7 @@ def decode_corpus_device(
         chunk_files = config.chunk_files
         pack = config.pack
     t_start = time.perf_counter()
-    out = DeviceCorpus(len(sources), dev)
+    out = DeviceCorpus(len(sources), devs)
 
     # 1. cheap header pass → buckets keyed by shape. Only a 64-byte prefix
     # + the file size are read here; full bytes load per chunk at scan
@@ -744,50 +812,74 @@ def decode_corpus_device(
         use_cols_wire = _native.available()
 
     # 2. per bucket, chunked scan → copy → dispatch. The device submission
-    # runs on a single worker thread so the GIL-free C++ scan of chunk N+1
-    # overlaps chunk N's copy.
+    # runs on a single worker thread, which serves every device of the
+    # list, so the GIL-free C++ scan of chunk N+1 overlaps chunk N's copy.
     submitter = ThreadPoolExecutor(max_workers=1)
     pending: list = []
     n_collected = 0
+
+    def collect(fut) -> None:
+        for b in fut.result():
+            out._add_bucket(b)
+
     try:
         for (level, rows, nb), entries in buckets.items():
             cols = 1 << level
             wlen = 2 * cols - 2
             per_file = max(1, nb * rows * cols)
             if chunk_files is not None:
-                step = max(1, chunk_files)
+                step = max(1, chunk_files) * n_shards
             else:
-                # auto: ~16M samples per dispatch, 8..256 files
-                step = min(256, max(8, -(-16_000_000 // per_file)))
+                # auto: ~16M samples per dispatch (per device), 8..256
+                # files
+                step = min(256, max(8, -(-16_000_000 // per_file))) * n_shards
             if use_cols_wire:
-                # the JAX reference caps a chunk's payload stream below
-                # 2^31 bits (128M samples * 16 bits); same chunks here
-                step = min(step, max(1, (1 << 27) // per_file))
+                # the JAX reference caps a chunk's per-shard payload
+                # stream below 2^31 bits (128M samples * 16 bits); same
+                # chunks here
+                step = min(step,
+                           max(n_shards, ((1 << 27) // per_file) * n_shards))
             for lo in range(0, len(entries), step):
                 chunk = entries[lo : lo + step]
                 # bound in-flight dispatches: caps host memory at
                 # O(few chunks) of wire arrays and lets pooled buffers
                 # recycle
                 while len(pending) - n_collected >= 6:
-                    out._add_bucket(pending[n_collected].result())
+                    collect(pending[n_collected])
                     n_collected += 1
-                if use_cols_wire:
-                    t0 = time.perf_counter()
-                    arrays, w = _scan_cols_wire(chunk, level, rows, nb, dev)
-                    out.summary.scan_s += time.perf_counter() - t0
-                    fut = submitter.submit(
-                        _dispatch_cols_wire, arrays, chunk, level, rows, nb,
-                        w, dev,
-                    )
-                    w.fut = fut
-                    pending.append(fut)
+                shards = [(g, d) for g, d in zip(_shard(chunk, n_shards),
+                                                 devs) if g]
+                if not use_cols_wire:
+                    for g, d in shards:
+                        out._add_bucket(_dispatch_dense(
+                            g, level, rows, nb, wlen, d, pack=pack))
                     continue
-                out._add_bucket(
-                    _dispatch_dense(chunk, level, rows, nb, wlen, dev,
-                                    pack=pack)
-                )
+                t0 = time.perf_counter()
+                groups = []
+                try:
+                    for g, d in shards:
+                        arrays, w = _scan_cols_wire(g, level, rows, nb, d)
+                        # hold the buffers NOW: two groups share a pool
+                        # key when the list names a device twice, and
+                        # until the dispatch future exists free() would
+                        # hand this group's buffers to the next one
+                        # (reset + payload overwrite -> wrong PCM here)
+                        w.fut = _SCAN_HOLD
+                        groups.append((g, arrays, w, d))
+                    out.summary.scan_s += time.perf_counter() - t0
+                    fut = submitter.submit(_dispatch_cols_wire, groups,
+                                           level, rows, nb)
+                except BaseException:
+                    # a failed scan or submit must not leave the holds
+                    # pinned: the pool keeps busy buffers unconditionally
+                    for _, _, w, _ in groups:
+                        w.fut = None
+                    raise
+                for _, _, w, _ in groups:
+                    w.fut = fut
+                pending.append(fut)
         for fut in pending[n_collected:]:
-            out._add_bucket(fut.result())
+            collect(fut)
     finally:
         submitter.shutdown(wait=False)
 
@@ -857,6 +949,333 @@ def _dispatch_dense(chunk, level, rows, nb, wlen, device: torch.device,
         pcm, _ = synthesize(put(k), put(vals), wrap0, level=level, rows=rows,
                             backend="cuda")
     return _BucketOut(level=level, rows=rows, entries=chunk, pcm=pcm)
+
+
+#: windowed stream scan statuses (mirror _scan.cpp)
+_EXPECTED_EOF = -99
+_NEED_MORE_DATA = -98
+
+
+class _StreamReader:
+    """Incremental byte feeder for decode_stream_device: wraps a path,
+    bytes, or read()-only object; never holds more than what the caller's
+    window needs (paths are NOT slurped)."""
+
+    def __init__(self, src):
+        self._close = None
+        if isinstance(src, (bytes, bytearray)):
+            import io as _io
+
+            self._f = _io.BytesIO(src)
+        elif hasattr(src, "read"):
+            self._f = src
+        else:
+            self._f = open(src, "rb")
+            self._close = self._f.close
+
+    def read(self, n: int) -> bytes:
+        return self._f.read(n) or b""
+
+    def close(self) -> None:
+        if self._close is not None:
+            self._close()
+
+
+class _PrefixedReader:
+    """read()-only view that serves buffered head bytes first."""
+
+    def __init__(self, pre: bytearray, rd: "_StreamReader"):
+        self._pre, self._rd = bytearray(pre), rd
+
+    def read(self, n: int) -> bytes:
+        if self._pre:
+            out = bytes(self._pre[:n])
+            del self._pre[:n]
+            return out
+        return self._rd.read(n)
+
+
+def _stream_data_start(header: AcmHeader) -> int:
+    from ..format import ACM_HEADER_LEN, WAVC_HEADER_LEN
+
+    return ACM_HEADER_LEN + (WAVC_HEADER_LEN if header.wavc_file else 0)
+
+
+def _stream_wire_chunks(reader: "_StreamReader", e: _FileEntry, W: int,
+                        state: dict):
+    """Windowed packed scan of one stream, yielding full wire chunks.
+
+    Each yielded chunk is (cls [W, stride], pay4, pay8, pay16, wid4, wid8,
+    wid16, vals [W]) covering W committed blocks (the final chunk may
+    cover fewer; its tail rows are zero). Host residency: the byte window
+    + one chunk's wire. Sets state["oor"] (stale-amp-table: caller must
+    fall back) and appends per-window event arrays to state["events"];
+    e.n_good tracks committed blocks. The scan's first pass over data the
+    window didn't fully cover is rolled back and retried with a grown
+    window (NEED_MORE_DATA), so re-emission stays clean.
+    """
+    from ..scan import native as _native
+
+    hdr = e.header
+    level, rows, cols = hdr.level, hdr.rows, hdr.cols
+    buf = bytearray()
+    bit = 0
+    eof = False
+    # The reference stops reading once total_values words are delivered
+    # (acm_read clamp, decode.c:853-854) — it never attempts the next
+    # block, so bits past the declared block count must not contribute
+    # events/status (the one-shot corpus scan bounds max_blocks by
+    # header.n_blocks the same way).
+    remaining = hdr.n_blocks
+    # initial prefetch guess: ~4 wire bits/sample + block/column headers
+    need = max(1 << 16, (W * (rows * cols * 4 + 20 + 5 * cols)) // 8)
+    bufs = _native.CorpusScanBuffers()
+    while True:
+        while not eof and len(buf) < need:
+            got = reader.read(max(need - len(buf), 1 << 16))
+            if not got:
+                eof = True
+                break
+            buf += got
+        if not bufs.fits(len(buf)):
+            bufs = _native.CorpusScanBuffers(
+                max_file_bytes=len(buf) + (1 << 16))
+        c4, c8, c16, cw = _native.pay_stream_caps(W * cols, rows)
+        cls = np.zeros((W, (cols + 3) // 4), dtype=np.uint8)
+        pwr = np.zeros(W, dtype=np.uint8)
+        vals = np.zeros(W, dtype=np.uint16)
+        pay4 = np.zeros(c4, dtype=np.uint8)
+        pay8 = np.zeros(c8, dtype=np.uint8)
+        pay16 = np.zeros(c16, dtype=np.uint8)
+        wid4 = np.zeros(cw, dtype=np.uint8)
+        wid8 = np.zeros(cw, dtype=np.uint8)
+        wid16 = np.zeros(cw, dtype=np.uint8)
+        ng, _err, ncol, bits, oor, events = _native.scan_corpus_into(
+            memoryview(buf), hdr, cls, pwr, vals, pay4, pay8, pay16,
+            wid4, wid8, wid16, bufs, start_bit=bit, final=eof,
+            max_blocks=min(W, remaining),
+        )
+        status = int(bufs.meta[2])
+        resume = int(bufs.meta[10])
+        if oor:
+            state["oor"] = True
+            return
+        if status == _NEED_MORE_DATA and not eof:
+            # window ran dry mid-scan: grow it and rescan from the window
+            # start (fresh wire buffers per attempt: re-emission is clean)
+            need = int(need * 1.7) + (1 << 16)
+            continue
+        state["events"].append(events)
+        if ng > 0:
+            e.n_good += ng
+            remaining -= ng
+
+            def _sl(a, used_bytes):
+                # Next-power-of-two slices, as the JAX package cuts them
+                # (there for its compile cache, which torch does not
+                # have). Kept so that the wire chunks stay byte-equal to
+                # the reference's, which a test holds; cutting to the
+                # used length would copy up to half the bytes less.
+                n = max(256, 1 << (used_bytes + 1).bit_length())
+                return a[: min(n, len(a) - (len(a) & 1))]
+
+            yield (cls, _sl(pay4, -(-bits[0] // 8)),
+                   _sl(pay8, -(-bits[1] // 8)),
+                   _sl(pay16, -(-bits[2] // 8)),
+                   _sl(wid4, -(-ncol[0] // 2)),
+                   _sl(wid8, -(-ncol[1] // 2)),
+                   _sl(wid16, -(-ncol[2] // 2)), vals)
+        if status == _EXPECTED_EOF or remaining <= 0:
+            return
+        # full window committed (status 0): drop consumed bytes and keep
+        # scanning — the buffer may still hold undecoded blocks even at
+        # reader EOF; the final=True pass ends it with EXPECTED_EOF.
+        # (Rebuild instead of `del buf[:drop]`: the ctypes call keeps a
+        # cyclic export of the old buffer alive until gc, which would
+        # make an in-place resize raise BufferError.)
+        drop = resume // 8
+        buf = bytearray(memoryview(buf)[drop:])
+        bit = resume - 8 * drop
+
+
+def decode_stream_device(
+    source,
+    *,
+    device: Device = None,
+    devices: Sequence[Device] | None = None,
+    force_chans: int = 0,
+    window_blocks: int | None = None,
+):
+    """Decode ONE stream on the device, its carry kept there; over a
+    device list, with its block axis cut across the list.
+
+    Returns (pcm, FileResult with pcm=None carrying status and filler
+    metadata). On one device `pcm` is an int16 tensor [nb, block_len].
+    Over several devices it is a list of int16 tensors [span, block_len]
+    in block order, tensor i on devices[i % len(devices)], as the spans
+    lie: nothing is gathered, `torch.cat([p.to(dev) for p in pcm])` does
+    that where a caller wants it. Blocks past the stream's committed
+    count (the zero tail rows of the last window) hold no PCM of the
+    stream.
+
+    This is the SAME pipeline as the corpus path: windowed native packed
+    scan → cols-wire chunks → unpack + synthesis on the device, with the
+    filterbank carry handed from window to window ON THE DEVICE (it is a
+    tensor there from the first window to the last and is never fetched).
+    With `window_blocks=W`, host residency is O(byte window + one chunk's
+    wire): each wire chunk is dispatched as soon as it is scanned, and
+    `source` may be a read()-only object. Default (None): one full-file
+    window. `device=None` is the card (device.resolve_device).
+
+    Several devices: W is rounded up to the device count and each window
+    is scanned as one span of W / n blocks per device, each span's wire
+    copied to and unpacked on its own device. Torch has no compiler to
+    insert a halo exchange. For rows >= 2 a span's carry-in is the carry
+    the block before it leaves behind, which depends on that block alone
+    (ops.synth_torch.carry_of_block): one block of k and one val are
+    copied from the device before, so no span waits for the synthesis of
+    the span before it. For rows == 1 the carry depends on every earlier
+    block, and at level 0 it has no words: there the final carry is
+    chained span to span in order. The last span's final carry is the
+    next window's first carry.
+
+    Stale-amp-table streams (hostile input) fall back to the exact host
+    decoder (O(file)): in full-file mode the bytes are already in hand
+    (read()-only sources included), while the WINDOWED scan must re-read
+    the stream — from a consumed read()-only source that is impossible,
+    and a ValueError says so (AcmStream's windowed mode handles hostile
+    pipes exactly instead).
+    """
+    from ..ops.synth_torch import synthesize, unpack_cols_blob
+    from ..scan import native as _native
+
+    if devices is not None and device is not None:
+        raise ValueError("pass device or devices, not both")
+    devs = _resolve_devices(device if devices is None else devices)
+    n_shards = len(devs)
+    use_native = _native.available()
+    full_data: bytes | None = None  # full-file mode keeps the bytes in hand
+    if not use_native or window_blocks is None:
+        # one full-file window (and the only mode without the native
+        # scanner, which then routes through the exact oracle fallback)
+        try:
+            if hasattr(source, "read") and not isinstance(
+                    source, (bytes, bytearray)):
+                data = bytes(source.read())  # fresh read()-only object
+            else:
+                data = _read_source(source)
+        except OSError as exc:
+            raise AcmException(AcmError.ERR_OPEN) from exc
+        header = parse_header(BitReader(data))
+        if header is None:
+            raise AcmException(AcmError.ERR_NOT_ACM)
+        full_data = data
+        reader = _StreamReader(data[_stream_data_start(header):])
+        # Implicit window cap. The JAX unpack computes bit offsets in
+        # int32, so one window's payload must stay under 2^31 bits there;
+        # the port's offsets are int64 and need no cap, but the same
+        # windows keep the two packages chunking a huge file alike.
+        W = max(min(header.max_blocks_in(len(data)),
+                    (1 << 27) // max(header.block_len, 1) + 1), 1)
+        nbytes = len(data)
+    else:
+        try:
+            reader0 = _StreamReader(source)
+        except OSError as exc:
+            raise AcmException(AcmError.ERR_OPEN) from exc
+        head = bytearray()
+        while len(head) < 64:
+            got = reader0.read(1 << 16)
+            if not got:
+                break
+            head += got
+        header = parse_header(BitReader(bytes(head)))
+        if header is None:
+            reader0.close()
+            raise AcmException(AcmError.ERR_NOT_ACM)
+        reader = _StreamReader(
+            _PrefixedReader(head[_stream_data_start(header):], reader0))
+        W = window_blocks
+        nbytes = 0  # unknown; the windowed scan discovers the stream end
+
+    e = _FileEntry(
+        index=0, src=source, header=header, nbytes=nbytes,
+        channels=resolve_channels(header.channels, header.wavc_file,
+                                  force_chans),
+    )
+    level, rows, bl = header.level, header.rows, header.block_len
+    W = max(_round_up(W, n_shards), n_shards)
+    span = W // n_shards
+    # the carry of rows >= 2 depends on the last block alone; else chain
+    halo = n_shards > 1 and rows >= 2 and level >= 1
+
+    state = {"oor": not use_native, "events": []}
+    parts: list[torch.Tensor] = []
+    try:
+        if use_native:
+            # dispatch each span's wire as it is scanned; the carry goes
+            # from span to span and window to window without leaving the
+            # devices. The zero carry is made on the device that takes it.
+            wrapf = torch.zeros((1, header.wrapbuf_len), dtype=torch.int32,
+                                device=devs[0])
+            k = vals = None
+            for i, wire in enumerate(
+                    _stream_wire_chunks(reader, e, span, state)):
+                dev = devs[i % n_shards]
+                blob, lens = _coalesce_wire(
+                    (wire[0][None], *wire[1:7], wire[7][None]))
+                prev_k, prev_vals = k, vals
+                k, vals, _ = unpack_cols_blob(
+                    torch.from_numpy(blob).to(dev), level=level, rows=rows,
+                    batch=1, nb=span, lens=lens, has_wrap=False)
+                if halo and i % n_shards:
+                    # the block before this span, synthesized alone from
+                    # a zero carry on this device: its final carry
+                    _, carry = synthesize(
+                        prev_k[:, -1:].to(dev), prev_vals[:, -1:].to(dev),
+                        torch.zeros_like(wrapf, device=dev), level=level,
+                        rows=rows, backend="cuda")
+                else:
+                    carry = wrapf.to(dev)
+                pcm_c, wrapf = synthesize(k, vals, carry, level=level,
+                                          rows=rows, backend="cuda")
+                parts.append(pcm_c.reshape(span, bl))
+    finally:
+        reader.close()
+
+    e.events = (np.concatenate(state["events"]) if state["events"]
+                else np.zeros(0, dtype=np.int16))
+    if state["oor"]:
+        # stale-amp-table stream (hostile input) or no native scanner:
+        # only the exact host decode reproduces the reference — which
+        # needs the stream from the start (the dirty-table values depend
+        # on every prior block). Full-file mode already holds the whole
+        # stream; only the windowed scan must re-read the source.
+        data = full_data if full_data is not None else _reread_source(source)
+        if data is None:
+            raise ValueError(
+                "hostile (stale-amp-table) stream from an unseekable "
+                "source: the exact decode must re-read the stream; pass "
+                "bytes/a path/a seekable object, or use "
+                "AcmStream(window_blocks=N), which reproduces the "
+                "stale-table semantics on the host in O(window) memory")
+        _host_decode_fallback(e, data)
+        per = -(-max(e.n_good, 1) // n_shards)
+        full = np.zeros(per * n_shards * bl, dtype=np.int16)
+        n = min(len(e.host_pcm), len(full))
+        full[:n] = e.host_pcm[:n]
+        full = full.reshape(n_shards, per, bl)
+        parts = [torch.from_numpy(full[s]).to(devs[s])
+                 for s in range(n_shards)]
+    else:
+        _, e.first_err = _n_good(e.events)
+        if not parts:
+            parts = [torch.zeros((1, bl), dtype=torch.int16, device=devs[0])]
+    meta = _finalize(e, np.zeros(0, np.int16), bl)
+    meta.pcm = None
+    if n_shards > 1:
+        return parts, meta
+    return (torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]), meta
 
 
 #: decode_corpus_host slices the corpus into native batches of at most this
@@ -960,6 +1379,7 @@ def decode_corpus(
     sources: Sequence[Source],
     *,
     device: Device = None,
+    devices: Sequence[Device] | None = None,
     force_chans: int = 0,
     backend: str = "auto",
     chunk_files: int | None = None,
@@ -973,6 +1393,8 @@ def decode_corpus(
     RuntimeError. With
     device="cpu" it takes the fused native host decoder when that is
     built. backend="host" asks for the native host decoder and requires it.
+    `devices=[...]` implies device decode, sharded over the list (see
+    decode_corpus_device), whatever the devices are.
     """
     host_workers = 1
     if config is not None:
@@ -985,6 +1407,15 @@ def decode_corpus(
         host_workers = config.host_workers
     if backend not in ("auto", "host"):
         raise ValueError(f"unknown backend {backend!r}")
+    if devices is not None:
+        if backend == "host":
+            raise ValueError("backend 'host' decodes on the CPU and takes "
+                             "no device list")
+        return decode_corpus_device(
+            sources, device=device, devices=devices,
+            force_chans=force_chans, chunk_files=chunk_files, pack=pack,
+            config=config,
+        ).to_results()
     if backend == "host":
         if device is not None and torch.device(device).type != "cpu":
             raise ValueError("backend 'host' decodes on the CPU, not on "

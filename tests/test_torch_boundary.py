@@ -3,9 +3,11 @@
 The port imports torch, never jax and nothing of libacm_tpu; the host
 layers it shares with the JAX package are byte-identical copies, which
 keeps the two scanners (and their oracle) in lockstep. The probe drives
-the corpus, stream, random-access and CLI surfaces in a fresh process and
-imports the encoder, ingest and profiling modules, then checks what was
-loaded.
+the corpus (one device and a device list), stream, stream-device,
+distributed, random-access and CLI surfaces in a fresh process, imports
+the encoder, ingest and profiling modules, the port's examples, entry
+file, card tools and chip_smoke.py, runs the entry file's dry run, then
+checks what was loaded.
 """
 
 import pathlib
@@ -48,6 +50,31 @@ _PROBE = textwrap.dedent("""
         assert cli.main(["-i", str(fx)]) == 0
     assert "A:7/16" in out.getvalue()
     assert encode.encode_pcm and ingest.iter_pcm and profiling.trace
+
+    from libacm_tpu_torch.parallel import (decode_stream_device, distributed,
+                                           make_mesh, shard_manifest)
+    sharded = decode_corpus_device(files, devices=["cpu"] * 3)
+    assert sharded.checksum() == dc.checksum()
+    spans, meta = decode_stream_device(files[0], devices=["cpu", "cpu"],
+                                       window_blocks=2)
+    assert meta.status == 0 and len(spans) == 3
+    distributed.initialize()
+    assert shard_manifest(files) == files
+    assert distributed.allreduce_summary(dc.summary) is dc.summary
+
+    import importlib.util
+    for rel in ("examples/torch_transcode_corpus.py",
+                "examples/torch_stream_player.py",
+                "examples/torch_training_ingest.py",
+                "examples/torch_segment_server.py",
+                "tools/torch_parity_sweep.py", "tools/torch_synth_ab.py",
+                "tools/torch_synth_probe.py", "chip_smoke.py",
+                "__graft_entry_torch__.py"):
+        spec = importlib.util.spec_from_file_location(
+            pathlib.Path(rel).stem, rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    mod.dryrun_multidevice(["cpu", "cpu"])
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "libacm_tpu")
                  or m.startswith(("jax.", "libacm_tpu.")))

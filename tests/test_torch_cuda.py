@@ -4,8 +4,11 @@ Marked `cuda`: each test decides inside itself whether a card is present
 and skips when there is none (the CPU runs cover the plain version and a
 model of the kernel's tiling in test_torch_synth.py). On a machine with
 an H100 run `python -m pytest --noconftest tests/test_torch_cuda.py`.
-The last tests drive the reference API (stream, read_segment,
-decode_scan_result) through the kernel against the native host synth.
+Further tests drive the reference API (stream, read_segment,
+decode_scan_result) through the kernel against the native host synth;
+the last ones the carry handed from launch to launch on the card, the
+windowed decode_stream_device and a corpus sharded over one card named
+twice.
 """
 
 import pathlib
@@ -216,3 +219,85 @@ def test_decode_scan_result_level0_zero_width_carry():
     assert sc.launches["synth_pass"] == 1
     np.testing.assert_array_equal(got, st.decode_scan_result(scan,
                                                              backend="host"))
+
+
+# -- carry on the card, windows, device lists -----------------------------------
+
+
+@pytest.mark.parametrize("level,rows,nb,m", [
+    (7, 16, 40, 17), (4, 40, 30, 1), (10, 4, 12, 11), (3, 2, 9, 4),
+    (5, 1, 20, 7), (0, 256, 6, 2)])
+def test_split_launch_hands_the_carry_over_on_the_card(level, rows, nb, m):
+    """Blocks [0, nb) in one launch ≡ [0, m) then [m, nb) with wrapf as
+    the second launch's wrap0, never fetched; both ≡ the plain version.
+    B = 1 with a non-zero carry-in is what a stream window is."""
+    dev = _card()
+    k, v, w = _inputs(dev, level, rows, 1, nb)
+    whole = sc.synth_pcm_batch(k, v, w, level=level, rows=rows)
+    a = sc.synth_pcm_batch(k[:, :m].contiguous(), v[:, :m].contiguous(), w,
+                           level=level, rows=rows)
+    assert a[1].device == dev
+    b = sc.synth_pcm_batch(k[:, m:].contiguous(), v[:, m:].contiguous(),
+                           a[1], level=level, rows=rows)
+    torch.cuda.synchronize()
+    want = st.synth_pcm_batch(k, v, w, level=level, rows=rows)
+    assert torch.equal(whole[0], want[0])
+    assert torch.equal(torch.cat([a[0], b[0]], dim=1), want[0])
+    if level:
+        assert torch.equal(whole[1], want[1])
+        assert torch.equal(b[1], want[1])
+
+
+@pytest.mark.parametrize("level,rows,nb", [(6, 16, 40), (5, 1, 30),
+                                           (0, 64, 12)])
+@pytest.mark.parametrize("window", [None, 8, 7])
+def test_stream_device_on_card_matches_host(level, rows, nb, window):
+    """decode_stream_device on the card, one device and one card named
+    twice: PCM, status and filler equal to the host decoder."""
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.parallel import (decode_corpus_host,
+                                           decode_stream_device)
+
+    _card()
+    data = testing.speech_acm_bytes(np.random.default_rng(33), level=level,
+                                    rows=rows, n_blocks=nb)
+    host = decode_corpus_host([data])[0]
+    for kw in ({"device": "cuda"}, {"devices": ["cuda:0", "cuda:0"]}):
+        sc.reset_launches()
+        pcm, meta = decode_stream_device(data, window_blocks=window, **kw)
+        spans = pcm if isinstance(pcm, list) else [pcm]
+        assert all(p.device.type == "cuda" for p in spans)
+        got = torch.cat(spans).cpu().numpy().reshape(-1)
+        np.testing.assert_array_equal(got[: len(host.pcm)], host.pcm)
+        assert (meta.status, meta.filler_words) == (host.status,
+                                                    host.filler_words)
+        assert sum(sc.launches.values()) >= 1
+
+
+def test_corpus_sharded_over_one_card_twice_matches_one_device():
+    """devices=[cuda:0, cuda:0]: the groups share a pool key, so this
+    holds the buffer pins, the grouping and the result order."""
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.parallel import (decode_corpus_device,
+                                           decode_corpus_host)
+
+    _card()
+    rng = np.random.default_rng(21)
+    files = [testing.speech_acm_bytes(rng, level=int(rng.choice([3, 6])),
+                                      rows=16, n_blocks=4,
+                                      channels=int(rng.integers(1, 3)))
+             for _ in range(23)]
+    files[5] = files[5][: len(files[5]) - 10]
+    files[9] = b"not an ACM stream"
+    host = decode_corpus_host(files)
+    one = decode_corpus_device(files, device="cuda", chunk_files=2)
+    for _ in range(3):  # reuse of pooled buffers across calls
+        two = decode_corpus_device(files, devices=["cuda:0", "cuda:0"],
+                                   chunk_files=2)
+        assert two.block_until_ready().checksum() == one.checksum()
+        for h, g in zip(host, two.to_results()):
+            assert (h.status, h.filler_words) == (g.status, g.filler_words)
+            if h.pcm is None:
+                assert g.pcm is None
+            else:
+                np.testing.assert_array_equal(h.pcm, g.pcm)
