@@ -294,6 +294,30 @@ def profile_breakdown(torch, corpus, files, card: str) -> None:
                     f", host scan {out[0].summary.scan_s * 1e3} ms")
 
 
+def host_breakdown(torch, fn, label: str, top: int = 8) -> None:
+    """fn() under cProfile: the host functions with the most time of their
+    own (the profiler slows Python frames, not native calls, so the
+    shares lean towards Python)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats  # {(file, line, name): (cc, nc, tt, ct, _)}
+    total = sum(v[2] for v in stats.values())
+    print(f"{label}: host time by function, own time of {total * 1e3:.1f} "
+          "ms under cProfile:")
+    for (file, line, name), v in sorted(stats.items(),
+                                        key=lambda kv: -kv[1][2])[:top]:
+        where = (name if file == "~" else
+                 f"{pathlib.Path(file).name}:{line} {name}")
+        print(f"  host: {v[2] * 1e3:.1f} ms in {v[1]} x {where[:90]}")
+
+
 def _time_ms(torch, fn, reps: int) -> float:
     """Device time per call: CUDA events around `reps` calls queued behind
     a sleeping kernel, so that the card runs them back to back and the
@@ -607,6 +631,30 @@ def _stream_equal(pcm, meta, host, what: str) -> None:
           f"{what}: PCM differs from the host decoder")
 
 
+def stream_over_cards(torch, corpus, path, host, card) -> None:
+    """The long stream with each window's blocks cut over every card:
+    spans on their cards, in block order, equal to the host decoder."""
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    for W in STREAM_WINDOWS:
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        spans, meta = corpus.decode_stream_device(path, devices=cards,
+                                                  window_blocks=W)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        rate = len(host.pcm) / (time.perf_counter() - t0) / 1e6
+        check(all(p.device == cards[i % len(cards)]
+                  for i, p in enumerate(spans)),
+              f"window {W}: a span does not lie on its card")
+        _stream_equal(torch.cat([p.to(spans[0].device) for p in spans]), meta,
+                      host, f"window {W} over {len(cards)} cards")
+        print(f"phase 6: stream W={W} over {len(cards)} cards: "
+              f"{len(spans)} spans equal to decode_corpus_host; {rate} "
+              f"Msamples/s (host clock) {card}")
+
+
 def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
     """The windowed stream at full width. Returns the launches of the
     whole path, and of one decode for each (level, rows, W) shape."""
@@ -674,6 +722,9 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
                   "windowed decode: the carry was never fetched")
         _stream_equal(*out[0], host, "profiled windowed decode")
         del out
+        host_breakdown(torch, lambda: corpus.decode_stream_device(
+            path, device=dev, window_blocks=STREAM_WINDOWS[0]),
+            f"phase 6: stream W={STREAM_WINDOWS[0]}")
         synth_cuda.reset_launches()
         t0 = time.perf_counter()
         pcm, meta = corpus.decode_stream_device(path, device=dev)
@@ -687,6 +738,8 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
               f"blocks) equal to both: {samples / t_full / 1e6} Msamples/s "
               f"{card}")
         del pcm
+        if torch.cuda.device_count() > 1:
+            stream_over_cards(torch, corpus, path, host, card)
 
     rng = np.random.default_rng(8)
     for what, level, rows, nb, W in PASS_STREAMS:
@@ -761,7 +814,8 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
     """Phase 3's corpus over a device list: one card named twice (the
     groups share a pool key: grouping, buffer holds, result order), and
     over every card where there are several. Returns the launches of the
-    one-card-twice decode."""
+    one-card-twice decode and, for each route, the (level, rows, B, nb)
+    of its group with the most samples."""
     def check_results(dc, what):
         check(dc.block_until_ready().checksum() == checksum3,
               f"{what}: checksum {dc.checksum():#010x} != single-device "
@@ -786,6 +840,13 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
           f"decode_corpus_host; launches {launches}")
     for route, n in launches.items():
         check(n > 0, f"the sharded corpus launched {route} no time")
+    largest = {}
+    for b in dc._buckets:
+        B, nb = b.pcm.shape[0], b.pcm.shape[1]
+        route = ("synth_fused" if synth_cuda.fused_tile(b.level, b.rows, nb)
+                 else "synth_pass")
+        if B * b.pcm[0].numel() > largest.get(route, (0,))[0]:
+            largest[route] = (B * b.pcm[0].numel(), b.level, b.rows, B, nb)
     del dc
     n_cards = torch.cuda.device_count()
     print(f"phase 6: cards: {n_cards}")
@@ -813,7 +874,8 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
             samples / (time.perf_counter() - t0) / 1e6)
     print(f"phase 6: corpus decode {samples} samples, in turns: {runs} "
           f"Msamples/s (host clock) {card}")
-    return launches
+    return {"launches": launches,
+            "shapes": {r: v[1:] for r, v in largest.items()}}
 
 
 def phase6_processes(files, summary3, checksum3) -> dict:
@@ -889,46 +951,51 @@ def phase6_processes(files, summary3, checksum3) -> dict:
 
 
 def phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
-                       st6) -> list:
-    """The kernel at the shapes a stream window gives it, [1, W] with a
-    non-zero carry-in, against its plain version: time beside the plain
-    version's and the bound. One JSON row per shape; its launches are
-    those of one decode of that stream."""
-    shapes = [("stream window", 7, 16, W) for W in STREAM_WINDOWS]
-    shapes += [(f"stream window, {what}", level, rows, W)
+                       st6, sh6) -> list:
+    """The kernel at the shapes phase 6's paths give it — a stream window,
+    [1, W] with a non-zero carry-in, and each route's largest group of the
+    sharded corpus — against its plain version: time beside the plain
+    version's and the bound. One JSON row per shape; a window's launches
+    are those of one decode of that stream, a group's those of the whole
+    sharded decode."""
+    shapes = [("stream window", 7, 16, 1, W,
+               st6["per_shape"][(7, 16, W)]) for W in STREAM_WINDOWS]
+    shapes += [(f"stream window, {what}", level, rows, 1, W,
+                st6["per_shape"][(level, rows, W)])
                for what, level, rows, _, W in PASS_STREAMS]
+    shapes += [("sharded corpus, largest group", *geom, sh6["launches"])
+               for geom in sh6["shapes"].values()]
     rows_out = []
-    for what, level, rows, W in shapes:
-        k, v, w = _random_inputs(torch, dev, level, rows, 1, W,
+    for what, level, rows, B, W, launches in shapes:
+        k, v, w = _random_inputs(torch, dev, level, rows, B, W,
                                  seed=level * 5 + W)
         route = ("synth_fused" if synth_cuda.fused_tile(level, rows, W)
                  else "synth_pass")
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
         err = _max_err(torch, got, want, level)
-        check(err == 0, f"kernel disagrees at {level}/{rows} [1, {W}]")
+        check(err == 0, f"kernel disagrees at {level}/{rows} [{B}, {W}]")
         del got, want
         ms = _time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=20)
         plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=5)
-        bms, by = bound(level, rows, 1, W)
-        cfg = synth_cuda.fused_config(level, rows, 1, W, dev)
+        bms, by = bound(level, rows, B, W)
+        cfg = synth_cuda.fused_config(level, rows, B, W, dev)
         shape = (f", tile {cfg['T']}, span {cfg['span']}, grid "
                  f"{cfg['grid']}" if cfg else "")
-        print(f"phase 6: synthesis {what} {level}/{rows} [B=1, nb={W}], "
+        print(f"phase 6: synthesis {what} {level}/{rows} [B={B}, nb={W}], "
               f"non-zero carry-in, {route}{shape}: kernel {ms} ms, plain "
               f"{plain_ms} ms, bound {bms} ms ({by}), {bms / ms:.1%} of "
               f"bound, max abs err {err} {card}")
         rows_out.append({
-            "name": f"{route} ({what}, W={W})", "route": "cuda",
+            "name": f"{route} ({what}, [{B}, {W}])", "route": "cuda",
             "source": "libacm_tpu_torch/csrc/synth.cu",
             "replaces": "libacm_tpu/ops/synth_pallas.py:72",
-            "launches": st6["per_shape"][(level, rows, W)][route],
-            "max_abs_err": err,
+            "launches": launches[route], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,
-            "shape": f"level {level}, rows {rows}, B 1, nb {W}",
+            "shape": f"level {level}, rows {rows}, B {B}, nb {W}",
         })
         del k, v, w
     return rows_out
@@ -1109,13 +1176,14 @@ def main() -> int:
     st6 = phase6_stream(torch, synth_cuda, corpus, testing, "cuda", card)
     paths["stream_windows"] = st6["launches"]
     phase6_carry(torch, synth_cuda, synth_torch, dev)
-    paths["sharded_corpus"] = phase6_sharded(
-        torch, synth_cuda, corpus, files, host, checksum3, samples, card)
+    sh6 = phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
+                         samples, card)
+    paths["sharded_corpus"] = sh6["launches"]
     paths["two_processes"] = phase6_processes(files, summary3, checksum3)
     for route, row in kern_rows.items():
         row["launches_by_path"] = {p: n[route] for p, n in paths.items()}
     rows6 = phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
-                               st6)
+                               st6, sh6)
     print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]
                       + rows6}))
     print(f"chip_smoke: all phases passed in "

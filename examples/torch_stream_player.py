@@ -27,6 +27,7 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+from libacm_tpu_torch.device import resolve_device
 from libacm_tpu_torch.parallel import decode_stream_device
 from libacm_tpu_torch.stream import AcmStream, acm_open_file
 
@@ -52,6 +53,7 @@ def main(argv):
     ap.add_argument("seek_seconds", nargs="?", type=float)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)  # fails here without a card
     path = args.file
     src = FileReader(path)
     s = AcmStream(src, window_blocks=WINDOW_BLOCKS)
@@ -78,7 +80,7 @@ def main(argv):
     # the same stream, windowed, onto the device: the PCM stays there
     src = FileReader(path)
     t0 = time.perf_counter()
-    pcm, meta = decode_stream_device(src, device=args.device,
+    pcm, meta = decode_stream_device(src, device=device,
                                      window_blocks=WINDOW_BLOCKS)
     n = total // 2
     dev_sum = int(pcm.reshape(-1)[:n].sum(dtype=torch.int64))
@@ -94,8 +96,7 @@ def main(argv):
 
     if args.seek_seconds is not None:
         # interactive-seek shape: reopen seekably and jump around
-        s2 = acm_open_file(path, window_blocks=WINDOW_BLOCKS,
-                           device=args.device)
+        s2 = acm_open_file(path, window_blocks=WINDOW_BLOCKS, device=device)
         ms = int(args.seek_seconds * 1000)
         reached = s2.seek_time(ms)
         print(f"seek to {ms} ms -> reached {reached} ms; "

@@ -215,7 +215,8 @@ def unpack_cols(
         codes.reshape(batch * nb * cols), pay4, pay8, pay16,
         wid4, wid8, wid16, rows=rows,
     )  # [batch*nb*cols, rows]
-    return k_cols.reshape(batch, nb, cols, rows).permute(0, 1, 3, 2).contiguous()
+    k = k_cols.reshape(batch, nb, cols, rows).permute(0, 1, 3, 2)
+    return k.contiguous()
 
 
 def synth_pcm_cols(

@@ -84,16 +84,21 @@ def test_torch_segment_server_self_demo():
 
 
 @pytest.mark.parametrize("example", ["torch_transcode_corpus.py",
-                                     "torch_training_ingest.py"])
+                                     "torch_training_ingest.py",
+                                     "torch_stream_player.py",
+                                     "torch_segment_server.py"])
 def test_torch_examples_default_to_the_card(corpus_dir, tmp_path, example):
     """No --device and no card: the example fails and names CUDA."""
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
-    args = [EXAMPLES / example, corpus_dir]
-    if example == "torch_transcode_corpus.py":
-        args.append(tmp_path / "wav")
-    r = _run(args)
+    args = {
+        "torch_transcode_corpus.py": [corpus_dir, tmp_path / "wav"],
+        "torch_training_ingest.py": [corpus_dir],
+        "torch_stream_player.py": [corpus_dir / "speech_22k_mono.acm"],
+        "torch_segment_server.py": [],  # the self-demo
+    }[example]
+    r = _run([EXAMPLES / example, *args])
     assert r.returncode != 0
     assert "CUDA is not available" in r.stderr

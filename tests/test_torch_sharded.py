@@ -170,10 +170,12 @@ def test_torch_sharded_holds_every_group_until_dispatch(monkeypatch):
     monkeypatch.setattr(tcorpus, "_acquire_wire_bufs", pooled_acquire)
     # the CPU tensor aliases the blob: copy it, as a card would
     real_coalesce = tcorpus._coalesce_wire
-    monkeypatch.setattr(
-        tcorpus, "_coalesce_wire",
-        lambda arrays, w=None: (lambda b, l: (b.copy(), l))(
-            *real_coalesce(arrays, w)))
+
+    def copying_coalesce(arrays, wirebufs=None):
+        blob, lens = real_coalesce(arrays, wirebufs)
+        return blob.copy(), lens
+
+    monkeypatch.setattr(tcorpus, "_coalesce_wire", copying_coalesce)
     got = tcorpus.decode_corpus_device(files, devices=[cpu, cpu],
                                        chunk_files=1)
     _assert_same(want, got.to_results())
