@@ -15,11 +15,11 @@ Phases (any failure exits non-zero, and no result line is printed):
             before and read just after — checked file by file against the
             port's decode_corpus_host (PCM, status, filler words), and its
             checksum() against the same masked sum taken on the host.
-4. numbers: end-to-end Msamples/s (host clock around work that ends in
-            torch.cuda.synchronize()), each kernel's time per bench
-            geometry with CUDA events beside the plain version's time and
-            the bound, its launch shape (shared memory per CTA, resident
-            CTAs per SM).
+4. numbers: one corpus decode under torch.profiler (wall, host scan, the
+            card's busy share and its kernels by time), each kernel's time
+            per bench geometry with CUDA events beside the plain version's
+            time and the bound, its launch shape (shared memory per CTA,
+            resident CTAs per SM).
 5. reference API on the card, three paths, each with the launch
             counters reset just before it and read just after:
             stream — every tests/fixtures file and one full-size file of
@@ -28,14 +28,13 @@ Phases (any failure exits non-zero, and no result line is printed):
             equal to the same stream under synth_backend="host" and to
             the golden .raw; seeks forward, back to 0, and the
             stale-amp-table seek sequences;
-            random access — 1,000 random windows of 1-50,000 frames over
+            random access — 300 random windows of 1-50,000 frames over
             the 190-file corpus through RandomAccessCorpus(device="cuda"),
             equal to backend="host";
             CLI — `acmtool -d -r -o` in process on three fixtures, equal
             to the goldens.
-            Then whole-file stream Msamples/s and segments per second, card
-            against host, and the kernel's time at the shapes these paths
-            give it (B = 1) beside its plain version and its bound.
+            Then the kernel's time at the shapes these paths give it
+            (B = 1) beside its plain version and its bound.
 6. device lists, windows and processes, each part with the launch
             counters reset just before it and read just after:
             stream windows — one seeded 7/16 mono stream of STREAM_BLOCKS
@@ -59,14 +58,37 @@ Phases (any failure exits non-zero, and no result line is printed):
             two processes — two ranks of tests/_torch_dist_worker.py over
             gloo, each decoding its manifest shard on the card, totals
             equal to the one-process summary.
-            Then stream Msamples/s per W, the kernel's time at [1, W]
-            with a non-zero carry, sharded against single-device corpus
-            Msamples/s; last, one JSON line of kernels.
+7. the dense route and the bench, each with the launch counters reset
+            just before and read just after:
+            dense route — decode_corpus_device(device="cuda", pack=False)
+            over two full-size files of every bench-mix class and the
+            hostile ones (dense int16 k straight into the kernel), and
+            pack=True with the scanner answering "not built" for that call
+            (oracle scan of short files of every class, pack_blocks, the
+            unpack on the card): PCM, status and filler equal to
+            decode_corpus_host, checksum() equal to the host sum and to the
+            cols-wire route's, both kernel routes launched;
+            bench — bench_torch.run_bench in process on the card at the
+            full corpus width, on phase 3's files and phase 6's stream
+            (no second encode), three rounds a group: every card field
+            non-null and finite, no group skipped, its checksums equal to
+            phase 3's, its parity verdict PASS; its JSON line is printed.
+            Last, the kernel's time at the shapes phases 6 and 7 gave it
+            ([1, W] with a non-zero carry, the largest sharded and dense
+            groups), and one JSON line of kernels.
 
-Phases 1-5 run at the depth they always had.
+Phases 1-3 and the checks of phases 4-6 run at the depth they always had.
+Given to the bench (phase 7), which runs them in turns with repeats: phase
+4's three timed corpus decodes, phase 5's whole-file stream rounds (card
+against host synth) and its timing of 1,000 random-access windows (300 are
+still held to the host route here, and the bench holds its 1,000 to it
+too), phase 6's second decode of each stream window from each source and,
+on a machine with one card, its timing of one device against a device
+list. Each phase prints the seconds it took.
 
 The last line is {"ok": true, "device": {...}}. Needs no network; imports
-torch, numpy and libacm_tpu_torch only.
+torch, numpy, libacm_tpu_torch and bench_torch.py (the corpus mix, the long
+stream, the kernel's bound and its timer are defined there, once).
 """
 
 from __future__ import annotations
@@ -76,7 +98,6 @@ import io
 import json
 import os
 import pathlib
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -86,23 +107,17 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
-#: published H100 SXM rates (NVIDIA data sheet / Hopper white paper): HBM3
-#: bandwidth, and int32 ALU issue = 132 SMs x 64 INT32 lanes x 1.98 GHz
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-
-#: bench.py's corpus mix: (tag, count, distinct files encoded, level, rows,
-#: n_blocks, channels, rate, wavc, base_pwr, decay_cols)
-MIX = [
-    ("speech", 120, 3, 7, 16, 300, 1, 22050, False, 5, 4.0),
-    ("music", 30, 2, 7, 16, 300, 2, 44100, False, 8, 24.0),
-    ("lvl4", 15, 2, 4, 40, 1200, 1, 22050, False, 5, 4.0),
-    ("lvl10", 10, 2, 10, 4, 150, 2, 44100, False, 5, 4.0),
-    ("lvl0", 5, 2, 0, 2048, 400, 1, 22050, False, 5, 4.0),
-    ("wavc", 5, 2, 7, 16, 300, 1, 22050, True, 5, 4.0),
-]
-N_HOSTILE = 5  # 3 bit-flipped + 2 truncated level-7 members, as bench.py
+# the corpus mix and long stream (built from a seed), the kernel's bound and
+# its timer have one definition, in the port's bench
+import bench_torch  # noqa: E402
+from bench_torch import (MIX, STREAM_BLOCKS, STREAM_DISTINCT,  # noqa: E402
+                         STREAM_SEED, STREAM_WINDOWS, bound, kernel_route,
+                         long_stream, make_corpus, mix_class_firsts)
+from bench_torch import max_err as _max_err  # noqa: E402
+from bench_torch import random_inputs as _random_inputs  # noqa: E402
+from bench_torch import time_ms as _time_ms  # noqa: E402
 
 #: phase 5's kernel shapes, one file per launch: (what, level, rows, nb).
 #: Whole bench-mix files through the stream; read_segment spans (a
@@ -116,17 +131,14 @@ NEW_SHAPES = [("stream, whole file", 7, 16, 300),
               ("read_segment, 50,000 frames", 7, 16, 32),
               ("read_segment, short", 4, 40, 8),
               ("stream, rows == 1", 7, 1, 4800)]
-#: phase 6's long stream: blocks (7/16 mono: 41.9 M samples, 31.7 minutes
-#: at 22,050 Hz), the distinct encoded blocks it is drawn from, and the
-#: windows: one that divides the block count and one that does not
-STREAM_BLOCKS = 20480
-STREAM_DISTINCT = 800
-STREAM_WINDOWS = (2048, 3000)
 #: phase 6's per-pass streams: (what, level, rows, blocks, window)
 PASS_STREAMS = [("rows == 1", 7, 1, 4800, 512), ("level 0", 0, 2048, 400, 64)]
 #: phase 6's split launches: (level, rows, nb, blocks in the first launch)
 SPLITS = [(7, 16, 2048, 1000), (4, 40, 1200, 7), (10, 4, 150, 77),
           (7, 1, 4800, 2400), (0, 2048, 400, 100)]
+
+#: phase 5's random-access windows (phase 7's bench reads 1,000)
+RA_WINDOWS = 300
 
 #: phase 5's CLI fixtures: a fused, a level-0 and a rows == 1 stream
 CLI_FIXTURES = ("speech_22k_mono", "level0", "rows1")
@@ -148,38 +160,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def make_corpus(testing, scale: float = 1.0, seed: int = 2026) -> list[bytes]:
-    """The bench corpus mix, a few distinct encodes per class repeated up
-    to the class count (scale < 1 shrinks counts and blocks, for a
-    rehearsal on the CPU)."""
-    rng = np.random.default_rng(seed)
-    files: list[bytes] = []
-    speech: list[bytes] = []
-    for (tag, count, distinct, lv, rw, nb, ch, rate, wavc, pwr,
-         decay) in MIX:
-        nb = max(2, int(nb * scale))
-        count = max(1, int(count * scale))
-        enc = [testing.speech_acm_bytes(rng, level=lv, rows=rw, n_blocks=nb,
-                                        channels=ch, rate=rate,
-                                        base_pwr=pwr, decay_cols=decay,
-                                        wavc=wavc)
-               for _ in range(min(distinct, count))]
-        if tag == "speech":
-            speech = enc
-        files += [enc[i % len(enc)] for i in range(count)]
-    for i in range(N_HOSTILE):
-        data = speech[i % len(speech)]
-        if i < 3:
-            b = bytearray(data)
-            for _ in range(8):
-                b[int(rng.integers(14, len(b)))] ^= 1 << int(rng.integers(0, 8))
-            data = bytes(b)
-        else:
-            data = data[: int(len(data) * 0.7)]
-        files.append(data)
-    return files
 
 
 def check_corpus(native, files, dc, host) -> int:
@@ -224,26 +204,6 @@ def check_corpus(native, files, dc, host) -> int:
     check(got_sum == want & 0xFFFFFFFF,
           f"checksum {got_sum} != host {want & 0xFFFFFFFF}")
     return len(files)
-
-
-def bound(level: int, rows: int, B: int, nb: int) -> tuple[float, str]:
-    """Least time (ms) for synthesis of [B, nb] blocks: k read and PCM
-    written once (+ vals and carries) over HBM bandwidth, against the
-    fewest int32 instructions the function needs over the int32 issue
-    rate; returns (ms, what bounds it).
-
-    Per sample: 1 to dequantize, 2 per FIR pass (y = 2m ± (a + c) is two
-    three-input adds, the sign being fixed for each run of s samples),
-    1 for the shift; plus the pass-0 bias on the 2/cols samples at
-    f % s == 0."""
-    cols = 1 << level
-    samples = B * nb * rows * cols
-    wbytes = 2 * B * (2 * cols - 2) * 4 if level else 0
-    nbytes = 4 * samples + 4 * B * nb + wbytes
-    ops = samples * (2 + 2 * level) + (samples * 2 // cols if level else 0)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _profiled(torch, fn) -> tuple[float, list]:
@@ -316,42 +276,6 @@ def host_breakdown(torch, fn, label: str, top: int = 8) -> None:
         where = (name if file == "~" else
                  f"{pathlib.Path(file).name}:{line} {name}")
         print(f"  host: {v[2] * 1e3:.1f} ms in {v[1]} x {where[:90]}")
-
-
-def _time_ms(torch, fn, reps: int) -> float:
-    """Device time per call: CUDA events around `reps` calls queued behind
-    a sleeping kernel, so that the card runs them back to back and the
-    host's time to launch them is not counted."""
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # about 50 ms of the card's clock
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def _random_inputs(torch, dev, level, rows, B, nb, seed):
-    rng = np.random.default_rng(seed)
-    cols = 1 << level
-    k = rng.integers(-2000, 2000, (B, nb, rows, cols)).astype(np.int16)
-    v = rng.integers(0, 1 << 16, (B, nb)).astype(np.int32)
-    w = rng.integers(-500, 500, (B, max(2 * cols - 2, 1))).astype(np.int32)
-    return tuple(torch.from_numpy(a).to(dev) for a in (k, v, w))
-
-
-def _max_err(torch, got, want, level) -> int:
-    err = int((got[0].to(torch.int32) - want[0].to(torch.int32))
-              .abs().max().item()) if got[0].numel() else 0
-    if level:
-        err = max(err, int((got[1].to(torch.int64) - want[1].to(torch.int64))
-                           .abs().max().item()))
-    return err
 
 
 def _drain(stream, errors) -> bytes:
@@ -465,68 +389,49 @@ def phase5_stream(torch, synth_cuda, files, card) -> dict:
           f"{launches}")
     for route, count in launches.items():
         check(count > 0, f"the stream path launched {route} no time")
-    # whole-file decode speed, card against host, in turns
-    def decode(d, kind):
-        s = (acm.acm_open_decoder(d, device="cuda") if kind == "card" else
-             acm.AcmStream(tio.BytesSource(d), synth_backend="host"))
-        return s.read_loop(1 << 30)
-
+    # one profiled pass over the clean full-size files (the card against
+    # synth_backend="host" in turns is bench_torch.py's, phase 7)
     clean = files[:-1]
-    samples = sum(len(decode(d, "host")) // 2 for d in clean)
-    runs: dict[str, list[float]] = {"card": [], "host": []}
-    for kind in ("card", "host", "host", "card", "card", "host"):
-        t0 = time.perf_counter()
-        for d in clean:
-            decode(d, kind)
-        runs[kind].append(samples / (time.perf_counter() - t0) / 1e6)
-    wall, ranked = _profiled(torch, lambda: [decode(d, "card")
-                                             for d in clean])
+    wall, ranked = _profiled(torch, lambda: [
+        acm.acm_open_decoder(d, device="cuda").read_loop(1 << 30)
+        for d in clean])
     print_breakdown("phase 5: stream decode", wall, ranked, card)
-    print(f"phase 5: whole-file stream decode ({len(clean)} files, {samples} "
-          f"samples, open + read_loop): card {runs['card']} Msamples/s "
-          f"(median {statistics.median(runs['card'])}), host synth "
-          f"{runs['host']} Msamples/s (median "
-          f"{statistics.median(runs['host'])}) {card}")
     return launches
 
 
 def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
-    """1,000 random windows of 1-50,000 frames over the corpus through
-    RandomAccessCorpus on the card, each equal to backend="host"."""
+    """RA_WINDOWS random windows of 1-50,000 frames over the corpus through
+    RandomAccessCorpus on the card, each equal to backend="host" (the
+    bench's 1,000 windows, each held to the host route too, follow in
+    phase 7)."""
     from libacm_tpu_torch.parallel import RandomAccessCorpus
 
     rac = RandomAccessCorpus(corpus_files, device="cuda")
     host = RandomAccessCorpus(corpus_files, backend="host")
     rng = np.random.default_rng(5)
     windows = []
-    for _ in range(1000):
+    for _ in range(RA_WINDOWS):
         i = int(rng.integers(0, len(corpus_files)))
         total = host.pcm_total(i)  # builds (and caches) the index
         rac.pcm_total(i)
         windows.append((i, int(rng.integers(0, max(total, 1))),
                         int(rng.integers(1, 50_001))))
     synth_cuda.reset_launches()
-    t0 = time.perf_counter()
     got = [rac.read(i, s, n) for i, s, n in windows]
-    t_card = time.perf_counter() - t0
     launches = dict(synth_cuda.launches)
-    t0 = time.perf_counter()
     want = [host.read(i, s, n) for i, s, n in windows]
-    t_host = time.perf_counter() - t0
     frames = 0
     for (i, s, n), g, w in zip(windows, got, want):
         check(g.shape == w.shape and np.array_equal(g, w),
               f"window ({i}, {s}, {n}): card differs from backend='host'")
         frames += len(g)
-    print(f"phase 5: random access: 1000 windows ({frames} frames) over "
-          f"{len(corpus_files)} files equal to backend='host'; launches "
+    print(f"phase 5: random access: {RA_WINDOWS} windows ({frames} frames) "
+          f"over {len(corpus_files)} files equal to backend='host'; launches "
           f"{launches}")
     check(sum(launches.values()) > 0, "random access launched no kernel")
     wall, ranked = _profiled(torch, lambda: [rac.read(*w)
-                                             for w in windows[:200]])
-    print_breakdown("phase 5: 200 random-access windows", wall, ranked, card)
-    print(f"phase 5: random access: card {1000 / t_card} segments/s, host "
-          f"{1000 / t_host} segments/s (warm indexes, host clock) {card}")
+                                             for w in windows[:100]])
+    print_breakdown("phase 5: 100 random-access windows", wall, ranked, card)
     return launches
 
 
@@ -564,8 +469,7 @@ def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> None:
     for what, level, rows, nb in NEW_SHAPES:
         k, v, w = _random_inputs(torch, dev, level, rows, 1, nb,
                                  seed=level * 7 + nb)
-        route = ("synth_fused" if synth_cuda.fused_tile(level, rows, nb)
-                 else "synth_pass")
+        route = kernel_route(synth_cuda, level, rows, nb)
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
         err = _max_err(torch, got, want, level)
@@ -583,31 +487,6 @@ def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> None:
               f"{bms} ms ({by}), {bms / ms:.1%} of bound, max abs err {err} "
               f"{card}")
         del k, v, w, got, want
-
-
-def long_stream(testing, build_index, seed: int, n_blocks: int,
-                distinct: int, level: int = 7, rows: int = 16) -> bytes:
-    """A seeded mono stream of n_blocks blocks without encoding them all.
-
-    The fixture encoder writes about 400 blocks a second, so `distinct`
-    + 1 blocks of the speech class are encoded once, cut apart at their
-    bit offsets (build_index), and n_blocks of them drawn from the seed
-    are joined bit by bit behind a fresh header. Blocks are
-    self-contained in the format, so the stream is valid; every junction
-    gives the filterbank another carry."""
-    rng = np.random.default_rng(seed)
-    base = testing.speech_acm_bytes(rng, level=level, rows=rows,
-                                    n_blocks=distinct + 1, base_pwr=5,
-                                    decay_cols=4.0)
-    pos = build_index(base).bitpos
-    check(len(pos) == distinct + 1, "long_stream: base stream did not scan")
-    bits = np.unpackbits(np.frombuffer(base, np.uint8), bitorder="little")
-    order = rng.integers(0, distinct, n_blocks)
-    body = np.concatenate([bits[pos[i]:pos[i + 1]] for i in order])
-    w = testing.BitWriter()
-    testing.write_header(w, n_blocks * (rows << level), 1, 22050, level,
-                         rows)
-    return w.getvalue() + np.packbits(body, bitorder="little").tobytes()
 
 
 class _ReadOnly:
@@ -657,11 +536,12 @@ def stream_over_cards(torch, corpus, path, host, card) -> None:
 
 def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
     """The windowed stream at full width. Returns the launches of the
-    whole path, and of one decode for each (level, rows, W) shape."""
+    whole path, of one decode for each (level, rows, W) shape, and the
+    long stream's bytes (phase 7's bench decodes them again)."""
     from libacm_tpu_torch.parallel import build_index
 
     t0 = time.perf_counter()
-    data = long_stream(testing, build_index, 6, STREAM_BLOCKS,
+    data = long_stream(testing, build_index, STREAM_SEED, STREAM_BLOCKS,
                        STREAM_DISTINCT)
     t_build = time.perf_counter() - t0
     host = corpus.decode_corpus_host([data])[0]
@@ -681,7 +561,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
         for W in STREAM_WINDOWS:
             n_win = -(-STREAM_BLOCKS // W)
             rates = []
-            for kind in ("path", "read()-only", "path", "read()-only"):
+            for kind in ("path", "read()-only"):
                 src = path if kind == "path" else _ReadOnly(data)
                 torch.cuda.synchronize()
                 synth_cuda.reset_launches()
@@ -706,7 +586,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
             print(f"phase 6: stream windows W={W}: {n_win} windows, one "
                   f"fused launch each, from a path and a read()-only "
                   f"object equal to decode_corpus_host; {rates} Msamples/s "
-                  f"(median {statistics.median(rates)}, host clock) {card}")
+                  f"(host clock, one decode each) {card}")
         # no copy from the card while the stream decodes: the carry stays
         out = []
         wall, ranked = _profiled(torch, lambda: out.append(
@@ -781,7 +661,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
     print("phase 6: stale-amp-table stream: host fallback equal to "
           "decode_corpus_host (full-file and windowed); ValueError from a "
           "read()-only source")
-    return {"launches": path_launches, "per_shape": per_shape}
+    return {"launches": path_launches, "per_shape": per_shape, "data": data}
 
 
 def phase6_carry(torch, synth_cuda, synth_torch, dev) -> None:
@@ -807,6 +687,18 @@ def phase6_carry(torch, synth_cuda, synth_torch, dev) -> None:
               f"[1, {nb - m}]: max abs err {err} (tolerance 0)")
         check(err == 0, f"split launches disagree at {level}/{rows}")
         del k, v, w, whole, a, b, want, split
+
+
+def largest_groups(synth_cuda, dc) -> dict:
+    """For each kernel route, the (level, rows, B, nb) of the decoded
+    corpus's group with the most samples."""
+    largest: dict = {}
+    for b in dc._buckets:
+        B, nb = b.pcm.shape[0], b.pcm.shape[1]
+        route = kernel_route(synth_cuda, b.level, b.rows, nb)
+        if B * b.pcm[0].numel() > largest.get(route, (0,))[0]:
+            largest[route] = (B * b.pcm[0].numel(), b.level, b.rows, B, nb)
+    return {r: v[1:] for r, v in largest.items()}
 
 
 def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
@@ -840,17 +732,10 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
           f"decode_corpus_host; launches {launches}")
     for route, n in launches.items():
         check(n > 0, f"the sharded corpus launched {route} no time")
-    largest = {}
-    for b in dc._buckets:
-        B, nb = b.pcm.shape[0], b.pcm.shape[1]
-        route = ("synth_fused" if synth_cuda.fused_tile(b.level, b.rows, nb)
-                 else "synth_pass")
-        if B * b.pcm[0].numel() > largest.get(route, (0,))[0]:
-            largest[route] = (B * b.pcm[0].numel(), b.level, b.rows, B, nb)
+    shapes = largest_groups(synth_cuda, dc)
     del dc
     n_cards = torch.cuda.device_count()
     print(f"phase 6: cards: {n_cards}")
-    lists = {"[cuda:0, cuda:0]": twice}
     if n_cards > 1:
         every = [torch.device("cuda", i) for i in range(n_cards)]
         dc = corpus.decode_corpus_device(files, devices=every)
@@ -859,23 +744,24 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
         check(used == set(range(n_cards)), f"cards used: {sorted(used)}")
         print(f"phase 6: sharded corpus over {n_cards} distinct cards: "
               "checksum and results equal")
-        lists[f"{n_cards} cards"] = every
         del dc
+        # one card against the lists, in turns (a machine with one card
+        # has nothing to compare: the bench times the single device)
+        lists = {"[cuda:0, cuda:0]": twice, f"{n_cards} cards": every}
+        runs: dict[str, list[float]] = {}
+        for what in ["single"] + list(lists) * 2 + ["single"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kw = ({"device": "cuda"} if what == "single"
+                  else {"devices": lists[what]})
+            corpus.decode_corpus_device(files, **kw).block_until_ready()
+            runs.setdefault(what, []).append(
+                samples / (time.perf_counter() - t0) / 1e6)
+        print(f"phase 6: corpus decode {samples} samples, in turns: {runs} "
+              f"Msamples/s (host clock) {card}")
     else:
         print("phase 6: one card: decode over distinct cards not verified")
-    runs: dict[str, list[float]] = {}
-    for what in ["single"] + list(lists) * 2 + ["single"]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        kw = ({"device": "cuda"} if what == "single"
-              else {"devices": lists[what]})
-        corpus.decode_corpus_device(files, **kw).block_until_ready()
-        runs.setdefault(what, []).append(
-            samples / (time.perf_counter() - t0) / 1e6)
-    print(f"phase 6: corpus decode {samples} samples, in turns: {runs} "
-          f"Msamples/s (host clock) {card}")
-    return {"launches": launches,
-            "shapes": {r: v[1:] for r, v in largest.items()}}
+    return {"launches": launches, "shapes": shapes}
 
 
 def phase6_processes(files, summary3, checksum3) -> dict:
@@ -950,14 +836,14 @@ def phase6_processes(files, summary3, checksum3) -> dict:
     return launches
 
 
-def phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
-                       st6, sh6) -> list:
-    """The kernel at the shapes phase 6's paths give it — a stream window,
-    [1, W] with a non-zero carry-in, and each route's largest group of the
-    sharded corpus — against its plain version: time beside the plain
-    version's and the bound. One JSON row per shape; a window's launches
-    are those of one decode of that stream, a group's those of the whole
-    sharded decode."""
+def path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
+                     st6, sh6, dense7) -> list:
+    """The kernel at the shapes phase 6's and phase 7's paths give it — a
+    stream window, [1, W] with a non-zero carry-in, and each route's
+    largest group of the sharded corpus and of the dense route — against
+    its plain version: time beside the plain version's and the bound. One
+    JSON row per shape; a window's launches are those of one decode of
+    that stream, a group's those of the whole decode on its path."""
     shapes = [("stream window", 7, 16, 1, W,
                st6["per_shape"][(7, 16, W)]) for W in STREAM_WINDOWS]
     shapes += [(f"stream window, {what}", level, rows, 1, W,
@@ -965,12 +851,13 @@ def phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
                for what, level, rows, _, W in PASS_STREAMS]
     shapes += [("sharded corpus, largest group", *geom, sh6["launches"])
                for geom in sh6["shapes"].values()]
+    shapes += [("dense route pack=False, largest group", *geom,
+                dense7["launches"]) for geom in dense7["shapes"].values()]
     rows_out = []
     for what, level, rows, B, W, launches in shapes:
         k, v, w = _random_inputs(torch, dev, level, rows, B, W,
                                  seed=level * 5 + W)
-        route = ("synth_fused" if synth_cuda.fused_tile(level, rows, W)
-                 else "synth_pass")
+        route = kernel_route(synth_cuda, level, rows, W)
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
         err = _max_err(torch, got, want, level)
@@ -984,7 +871,7 @@ def phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
         cfg = synth_cuda.fused_config(level, rows, B, W, dev)
         shape = (f", tile {cfg['T']}, span {cfg['span']}, grid "
                  f"{cfg['grid']}" if cfg else "")
-        print(f"phase 6: synthesis {what} {level}/{rows} [B={B}, nb={W}], "
+        print(f"kernel rows: synthesis {what} {level}/{rows} [B={B}, nb={W}], "
               f"non-zero carry-in, {route}{shape}: kernel {ms} ms, plain "
               f"{plain_ms} ms, bound {bms} ms ({by}), {bms / ms:.1%} of "
               f"bound, max abs err {err} {card}")
@@ -999,6 +886,101 @@ def phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
         })
         del k, v, w
     return rows_out
+
+
+def phase7_dense(torch, synth_cuda, corpus, native, testing, files,
+                 card) -> dict:
+    """The dense device route (_dispatch_dense) on the card, both forms,
+    each with the launch counters reset just before and read just after.
+
+    pack=False: dense int16 k goes to the card and straight into the
+    kernel; over the first two files of every bench-mix class and the five
+    hostile ones, at full size. pack=True without the scanner: the Python
+    oracle scans (slow, so short files: every class at a twentieth of its
+    length, two seeds), blocks are packed by width class for the copy and
+    unpacked on the card (unpack_blocks). PCM, status and filler equal to
+    decode_corpus_host, checksum() equal to the host sum and to the
+    cols-wire route's, both kernel routes launched. Returns the pack=False
+    decode's launches and its largest group per route."""
+    firsts = np.cumsum([0] + [m[1] for m in MIX])[:-1]
+    full = [files[i + j] for i in firsts for j in (0, 1)] + files[-5:]
+    short = make_corpus(testing, 0.05, seed=7) + make_corpus(testing, 0.05,
+                                                             seed=8)
+    out = {}
+    for what, subset, kw in (("pack=False", full, {"pack": False}),
+                             ("pack=True without the scanner", short, {})):
+        host = corpus.decode_corpus_host(subset)
+        cols = corpus.decode_corpus_device(subset, device="cuda")
+        check(len(cols._buckets) > 0 and cols.summary.scan_s > 0,
+              "phase 7: the cols-wire route did not run")
+        scanner = native.available
+        if not kw:
+            native.available = lambda: False  # for this call only
+        try:
+            synth_cuda.reset_launches()
+            t0 = time.perf_counter()
+            dc = corpus.decode_corpus_device(subset, device="cuda", **kw)
+            dc.block_until_ready()
+            wall = time.perf_counter() - t0
+            launches = dict(synth_cuda.launches)
+        finally:
+            native.available = scanner
+        check(dc.summary.scan_s == 0,
+              f"phase 7: {what} took the cols-wire route")
+        check_corpus(native, subset, dc, host)
+        check(dc.checksum() == cols.checksum(),
+              f"phase 7: {what}: checksum {dc.checksum():#010x} != the "
+              f"cols-wire route's {cols.checksum():#010x}")
+        for route, n in launches.items():
+            check(n > 0, f"phase 7: the dense route ({what}) launched "
+                  f"{route} no time")
+        print(f"phase 7: dense route, {what}: {len(subset)} files "
+              f"({dc.summary.samples} samples, every class) equal to "
+              f"decode_corpus_host, checksum {dc.checksum():#010x} equal to "
+              f"the cols-wire route's; launches {launches}; {wall:.3f} s "
+              f"{card}")
+        out.setdefault("launches", launches)
+        out.setdefault("shapes", largest_groups(synth_cuda, dc))
+        del dc, cols
+    return out
+
+
+def _all_finite(x) -> bool:
+    if isinstance(x, dict):
+        return all(_all_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_all_finite(v) for v in x)
+    if isinstance(x, float):
+        return np.isfinite(x)
+    return True
+
+
+def phase7_bench(files, stream, checksum3) -> dict:
+    """bench_torch.py in process on the card, on phase 3's files and phase
+    6's stream, three rounds a group: every card field present, non-null
+    and finite, no group skipped, checksums equal to phase 3's, parity
+    PASS. Prints the bench's line; returns it."""
+    art = bench_torch.run_bench("cuda", 3, 1.0, files=files, stream=stream)
+    missing = [f for f in bench_torch.CARD_FIELDS if art.get(f) is None]
+    check(not missing, f"phase 7: bench fields null or missing: {missing}")
+    check(_all_finite(art), "phase 7: the bench's line holds a non-finite "
+          "number")
+    check(not art["budget_skipped"] and not art["rehearsal"]
+          and art["device"]["platform"] == "gpu",
+          f"phase 7: bench skipped {art['budget_skipped']} or did not run "
+          "on the card")
+    check(art["device_checksum"] == f"{checksum3:#010x}"
+          and art["device_checksums_equal"] is True,
+          f"phase 7: bench checksum {art['device_checksum']} != phase 3's "
+          f"{checksum3:#010x}")
+    check(art["parity_sweep"] == "PASS",
+          f"phase 7: parity sweep {art['parity_sweep']!r}")
+    for row in art["kernel_rows"]:
+        check(row["max_abs_err"] == 0 and row["launches"] > 0,
+              f"phase 7: bench kernel row {row['name']}: err "
+              f"{row['max_abs_err']}, launches {row['launches']}")
+    print(json.dumps(art, allow_nan=False))
+    return art
 
 
 def main() -> int:
@@ -1016,6 +998,12 @@ def main() -> int:
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
+    t_phase = [t_all]
+
+    def phase_done(what: str) -> None:
+        now = time.perf_counter()
+        print(f"{what}: {now - t_phase[0]:.1f} s (at {now - t_all:.1f} s)")
+        t_phase[0] = now
 
     # -- 1. card + builds ---------------------------------------------------
     smi = subprocess.run(
@@ -1043,14 +1031,15 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+    phase_done("phase 1")
+
     # -- 2. kernel parity ---------------------------------------------------
     parity_err = {"synth_fused": 0, "synth_pass": 0}
     parity_n = {"synth_fused": 0, "synth_pass": 0}
     for level, rows, B, nb in PARITY:
         k, v, w = _random_inputs(torch, dev, level, rows, B, nb,
                                  seed=level * 131 + rows)
-        route = ("synth_fused" if synth_cuda.fused_tile(level, rows, nb)
-                 else "synth_pass")
+        route = kernel_route(synth_cuda, level, rows, nb)
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         torch.cuda.synchronize()
         want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
@@ -1061,6 +1050,8 @@ def main() -> int:
               f"{err} (tolerance 0)")
         check(err == 0, f"kernel disagrees with plain at {level}/{rows}")
     check(all(parity_n.values()), "a kernel route was not exercised")
+
+    phase_done("phase 2")
 
     # -- 3. main path at real size ------------------------------------------
     t0 = time.perf_counter()
@@ -1092,21 +1083,10 @@ def main() -> int:
     print(f"phase 3: {n_checked} files equal to decode_corpus_host; "
           f"checksum {checksum3:#010x} equal to the host sum")
     del dc
+    phase_done("phase 3")
 
     # -- 4. numbers ---------------------------------------------------------
-    runs, scans = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dcr = corpus.decode_corpus_device(files, device="cuda")
-        dcr.block_until_ready()
-        runs.append(time.perf_counter() - t0)
-        scans.append(dcr.summary.scan_s)
-        del dcr
-    e2e = [samples / t / 1e6 for t in runs]
-    print(f"phase 4: end-to-end device corpus decode {samples} samples: "
-          f"runs {e2e} Msamples/s, median {statistics.median(e2e)} "
-          f"Msamples/s; wall {runs} s, host scan {scans} s {card}")
+    # one profiled decode; the repeated end-to-end rounds are the bench's
     profile_breakdown(torch, corpus, files, card)
 
     per_geom = {}
@@ -1120,8 +1100,7 @@ def main() -> int:
             per_geom.items(), key=lambda g: -g[1][0] * g[1][1] * (
                 g[0][1] << g[0][0])):
         k, v, w = _random_inputs(torch, dev, level, rows, B, nb, seed=level)
-        route = ("synth_fused" if synth_cuda.fused_tile(level, rows, nb)
-                 else "synth_pass")
+        route = kernel_route(synth_cuda, level, rows, nb)
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
         err = _max_err(torch, got, want, level)
@@ -1162,15 +1141,17 @@ def main() -> int:
     check(set(kern_rows) == set(main_launches),
           "a kernel route has no main-path shape to time")
 
+    phase_done("phase 4")
+
     # -- 5. reference API on the card ---------------------------------------
-    firsts = np.cumsum([0] + [m[1] for m in MIX])  # first file of a class
-    mix_files = [files[i] for i in firsts[:-1]] + [files[firsts[-1]]]
+    mix_files = mix_class_firsts(files) + [files[-5]]  # + a bit-flipped one
     paths = {"corpus": main_launches}
     paths["stream"] = phase5_stream(torch, synth_cuda, mix_files, card)
     paths["random_access"] = phase5_random_access(torch, synth_cuda, files,
                                                    card)
     paths["cli"] = phase5_cli(synth_cuda)
     phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card)
+    phase_done("phase 5")
 
     # -- 6. device lists, windows, processes --------------------------------
     st6 = phase6_stream(torch, synth_cuda, corpus, testing, "cuda", card)
@@ -1180,12 +1161,24 @@ def main() -> int:
                          samples, card)
     paths["sharded_corpus"] = sh6["launches"]
     paths["two_processes"] = phase6_processes(files, summary3, checksum3)
+    phase_done("phase 6")
+
+    # -- 7. the dense route, and the bench in process -----------------------
+    dense7 = phase7_dense(torch, synth_cuda, corpus, native, testing, files,
+                          card)
+    paths["dense_route"] = dense7["launches"]
+    phase_done("phase 7 (dense route)")
+    art = phase7_bench(files, st6["data"], checksum3)
+    paths["bench"] = {
+        route: sum(n[route] for n in art["device_launches"].values())
+        for route in main_launches}
+    phase_done("phase 7 (bench)")
     for route, row in kern_rows.items():
         row["launches_by_path"] = {p: n[route] for p, n in paths.items()}
-    rows6 = phase6_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
-                               st6, sh6)
+    rows67 = path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
+                              st6, sh6, dense7)
     print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]
-                      + rows6}))
+                      + rows67}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -144,7 +144,10 @@ def decode_file(fn: str, fn2: str, cf: _Config) -> None:
 
 def show_info(fn: str, cf: _Config) -> None:
     try:
-        acm = acm_open_file(fn, cf.force_chans)
+        # -i reads the header and decodes nothing: open as a stream that
+        # needs no device, so that info works without a card
+        acm = AcmStream(acmio.FileSource(fn), cf.force_chans,
+                        synth_backend="host")
     except AcmException as e:
         print(f"{fn}: {acm_strerror(e.code)}")
         return

@@ -2,8 +2,9 @@
 
 Replaces the Pallas TPU kernel `libacm_tpu/ops/synth_pallas.py::_kernel`
 (launched by `synth_pcm_pallas`). The source is `csrc/synth.cu`; it is
-compiled with nvcc for sm_90a into `_build/` at first use and bound with
-ctypes through a plain C interface.
+compiled with nvcc for sm_90a at first use (into $LIBACM_TPU_TORCH_CACHE
+when that is set, beside the scanner's objects, else into `_build/` in the
+package) and bound with ctypes through a plain C interface.
 
 `synth_pcm_batch` is a drop-in for `ops.synth_torch.synth_pcm_batch`
 (same arguments, same bits, wrap_f included). For CPU tensors it runs that
@@ -48,7 +49,9 @@ from . import synth_torch
 
 _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE.parent / "csrc" / "synth.cu"
-_BUILD_DIR = _HERE.parent / "_build"
+#: environment variable naming the build directory (the scanner copy's
+#: too, scan/native.py); unset: `_build/` in the package
+CACHE_ENV = "LIBACM_TPU_TORCH_CACHE"
 
 #: shared memory the CTAs resident on one SM share (228 KB), and what the
 #: runtime reserves for each CTA
@@ -91,19 +94,29 @@ def _nvcc() -> str:
                        "built (set CUDA_HOME)")
 
 
+def build_dir() -> pathlib.Path:
+    """Where the kernel's shared object is built and looked up:
+    $LIBACM_TPU_TORCH_CACHE when set (so that an install whose package
+    directory cannot be written still builds), else `_build/` in the
+    package."""
+    return pathlib.Path(os.environ.get(CACHE_ENV) or _HERE.parent / "_build")
+
+
 def build() -> tuple[pathlib.Path, str]:
-    """Compile csrc/synth.cu for sm_90a (cached by source hash).
+    """Compile csrc/synth.cu for sm_90a into build_dir() (cached by source
+    hash).
 
     Returns (shared object path, nvcc's -Xptxas -v report; empty when the
     library was already built).
     """
     src = _SRC.read_bytes()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    so = _BUILD_DIR / f"synth-{tag}.so"
+    out_dir = build_dir()
+    so = out_dir / f"synth-{tag}.so"
     if so.exists():
         return so, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.NamedTemporaryFile(suffix=".so", dir=_BUILD_DIR,
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.NamedTemporaryFile(suffix=".so", dir=out_dir,
                                      delete=False) as tmp:
         tmp_path = pathlib.Path(tmp.name)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

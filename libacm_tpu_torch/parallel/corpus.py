@@ -388,6 +388,13 @@ class DeviceCorpus:
         sums its own chunks and the per-device sums (one scalar each) add
         on the host. The int64 sum taken & 0xFFFFFFFF equals the JAX
         package's wrapped int32 sum modulo 2^32.
+
+        The digest is of what lies on the device, as in the JAX package.
+        For a stale-amp-table file (hostile streams only) that is the
+        k*val synthesis of the file's slot, while to_results() hands back
+        the host decoder's exact PCM for it: for such a file the digest
+        does not describe the results. It is a check that two decodes
+        left the same tensors on the device, not a digest of the results.
         """
         tots: dict[torch.device, torch.Tensor] = {}
         for b in self._buckets:
@@ -410,7 +417,12 @@ class DeviceCorpus:
 
     def to_results(self) -> list[FileResult]:
         """Fetch PCM to host and apply per-file reference stop semantics;
-        results are in source order whatever the grouping."""
+        results are in source order whatever the grouping.
+
+        A stale-amp-table file's PCM is the host decoder's exact decode,
+        not its device slot (which checksum() and device_arrays() see):
+        only the host's virtual amp table reproduces the reference there.
+        """
         results: list[FileResult | None] = [None] * self._n
         for i, r in self._failed.items():
             results[i] = r

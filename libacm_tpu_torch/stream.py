@@ -269,10 +269,12 @@ class AcmStream:
     independent, including the native scanner (per-thread scratch), and
     `RandomAccessCorpus` is internally locked for many-reader serving.
 
-    Synthesis runs on `device` (None: the card, or $LIBACM_TPU_TORCH_DEVICE;
-    resolved at the first decode, raising there without a card);
-    synth_backend="host" asks for the native host synth instead. Windowed
-    mode is a native host decoder and uses neither.
+    Synthesis runs on `device` (None: the card, or $LIBACM_TPU_TORCH_DEVICE),
+    resolved at the open: without a card the open raises RuntimeError
+    (the source is closed first) and no read raises for want of a device.
+    synth_backend="host" asks for the native host synth instead, and
+    windowed mode is a native host decoder: neither needs a device, and
+    both open without one.
     """
 
     def __init__(self, src: acmio.AcmIO, force_chans: int = 0,
@@ -304,6 +306,15 @@ class AcmStream:
                     ResourceWarning,
                     stacklevel=2,
                 )
+
+        if not use_window and synth_backend != "host":
+            from .device import resolve_device
+
+            try:
+                self._device = resolve_device(device)
+            except RuntimeError:
+                self._close_src()
+                raise
 
         if use_window:
             # windowed: read just enough to parse the header (the parse

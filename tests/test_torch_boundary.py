@@ -6,7 +6,8 @@ keeps the two scanners (and their oracle) in lockstep. The probe drives
 the corpus (one device and a device list), stream, stream-device,
 distributed, random-access and CLI surfaces in a fresh process, imports
 the encoder, ingest and profiling modules, the port's examples, entry
-file, card tools and chip_smoke.py, runs the entry file's dry run, then
+file, card tools, chip_smoke.py and bench_torch.py, runs the entry file's
+dry run and the bench's CPU rehearsal (`--device cpu --scale 0.02`), then
 checks what was loaded.
 """
 
@@ -68,13 +69,21 @@ _PROBE = textwrap.dedent("""
                 "examples/torch_training_ingest.py",
                 "examples/torch_segment_server.py",
                 "tools/torch_parity_sweep.py", "tools/torch_synth_ab.py",
-                "tools/torch_synth_probe.py", "chip_smoke.py",
+                "tools/torch_synth_probe.py", "tools/torch_phase_probe.py",
+                "tools/torch_rss_sweep.py", "tools/torch_multicard_check.py",
+                "chip_smoke.py", "bench_torch.py",
                 "__graft_entry_torch__.py"):
         spec = importlib.util.spec_from_file_location(
             pathlib.Path(rel).stem, rel)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
     mod.dryrun_multidevice(["cpu", "cpu"])
+
+    # the bench's rehearsal, end to end in this process
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert sys.modules["bench_torch"].main(
+            ["--device", "cpu", "--scale", "0.02", "--repeats", "1"]) == 0
+    assert '"rehearsal": true' in out.getvalue()
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "libacm_tpu")
                  or m.startswith(("jax.", "libacm_tpu.")))

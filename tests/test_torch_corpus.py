@@ -87,6 +87,44 @@ def test_torch_device_checksum_matches_jax_for_any_chunking():
         assert got.checksum() == want, chunk_files
 
 
+def test_stale_amp_table_checksum_rule_in_both_packages():
+    """A stale-amp-table file: checksum() is the digest of what lies on
+    the device (the k*val synthesis of the file's slot), the same in both
+    packages; to_results() holds the host decoder's exact PCM, the same
+    in both packages; and for such a file the two describe different PCM."""
+    import pathlib
+
+    stale = (pathlib.Path(__file__).parent / "fixtures"
+             / "stale_table_fuzz_2103.acm").read_bytes()
+    clean = _corpus()[5]
+    for files in ([stale], [clean, stale, clean]):
+        jdc = jcorpus.decode_corpus_device(files, backend="jax")
+        tdc = tcorpus.decode_corpus_device(files, device="cpu")
+        host = tcorpus.decode_corpus_host(files)
+        _assert_same(jcorpus.decode_corpus_host(files), host)
+        _assert_same(host, tdc.to_results())
+        _assert_same(host, jdc.to_results())
+        assert tdc.checksum() == jdc.checksum()
+        for chunk_files in (1, 2):
+            assert tcorpus.decode_corpus_device(
+                files, device="cpu",
+                chunk_files=chunk_files).checksum() == jdc.checksum()
+
+        def results_sum(results):
+            return sum(int(r.pcm.astype(np.int64).sum())
+                       for r in results) & 0xFFFFFFFF
+
+        # the results' PCM of a clean file is a prefix of its device slot;
+        # the stale file's is another decode altogether
+        i = files.index(stale)
+        [(idx, slot)] = [(ix, pcm) for ix, pcm in tdc.device_arrays()
+                         if i in ix]
+        on_device = slot[idx.index(i)].reshape(-1).numpy()
+        got = tdc.to_results()[i].pcm
+        assert not np.array_equal(on_device[: len(got)], got)
+        assert tdc.checksum() != results_sum(host)
+
+
 def test_torch_checksum_config_invariant():
     """As test_corpus.py::test_device_checksum_config_invariant: padded
     rows/blocks are masked, so chunking and packing leave it unchanged."""

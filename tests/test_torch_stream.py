@@ -417,20 +417,60 @@ def test_decode_state_channel_mismatch_rejected():
 # -- device resolution and decode_scan_result ---------------------------------
 
 
-def test_stream_default_needs_card(monkeypatch):
-    """device=None is the card: without one the first decode raises, and
-    never carries on quietly on the CPU; the CPU is taken only when asked
-    for (device, LIBACM_TPU_TORCH_DEVICE or synth_backend="host")."""
+@pytest.mark.parametrize("how", ["decoder", "file", "class"])
+def test_stream_default_needs_card(how, monkeypatch, tmp_path):
+    """device=None is the card, resolved at the open: without one the open
+    raises and names LIBACM_TPU_TORCH_DEVICE (the source is closed), and
+    no read ever raises for want of a device; the CPU is taken only when
+    asked for (device, LIBACM_TPU_TORCH_DEVICE or synth_backend="host")."""
     data = _mk(n_blocks=2)
     want = _full_pcm(data).astype("<i2").tobytes()
+    path = tmp_path / "f.acm"
+    path.write_bytes(data)
     monkeypatch.delenv("LIBACM_TPU_TORCH_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Src(io.BytesIO):
+        closed_by_open = False
+
+        def close(self):
+            Src.closed_by_open = True
+            super().close()
+
+    opener = {"decoder": lambda: acm_open_decoder(data),
+              "file": lambda: acm_open_file(path),
+              "class": lambda: AcmStream(Src(data))}[how]
     with pytest.raises(RuntimeError, match="LIBACM_TPU_TORCH_DEVICE"):
-        acm_open_decoder(data).read_loop(10**9)
+        opener()
+    if how == "class":
+        assert Src.closed_by_open
     assert _open(data, "host").read_loop(10**9) == want
     assert acm_open_decoder(data, device="cpu").read_loop(10**9) == want
     monkeypatch.setenv("LIBACM_TPU_TORCH_DEVICE", "cpu")
-    assert acm_open_decoder(data).read_loop(10**9) == want
+    assert opener().read_loop(10**9) == want
+
+
+@pytest.mark.parametrize("kind", ["windowed", "host"])
+def test_stream_without_device_opens_and_reads(kind, monkeypatch):
+    """Windowed mode and synth_backend="host" are host decoders: they
+    open and read without a card and without LIBACM_TPU_TORCH_DEVICE, and
+    the reference API's reads hand back bytes, never an exception."""
+    from libacm_tpu_torch import acm_read
+
+    data = _mk(n_blocks=3)
+    want = _full_pcm(data).astype("<i2").tobytes()
+    monkeypatch.delenv("LIBACM_TPU_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = (acm_open_decoder(data, window_blocks=2) if kind == "windowed"
+         else AcmStream(io.BytesIO(data), synth_backend="host"))
+    got = bytearray()
+    while True:
+        b = acm_read(s, 4096)
+        assert isinstance(b, bytes)
+        if not b:
+            break
+        got += b
+    assert bytes(got) == want
 
 
 @pytest.mark.parametrize("backend", ["auto", "jax", "pallas", "torch"])

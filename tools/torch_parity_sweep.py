@@ -2,7 +2,7 @@
 """On-card parity sweep of the CUDA synthesis kernel: every level, both
 routes, with a zero and a non-zero carry-in, bit equality required.
 
-    python3 tools/torch_parity_sweep.py [LEVEL ...]
+    python3 tools/torch_parity_sweep.py [--deadline-s=S] [LEVEL ...]
 
 In the manner of tools/pallas_parity_sweep.py. For each level (default
 0-15) the kernel wrapper runs on small batches on the card — rows near the
@@ -13,8 +13,12 @@ bit-equal to the plain torch version on the same tensors. The CPU tests
 cover the plain version and a model of the kernel's schedule only; this
 pins what nvcc built for every level the format allows.
 
-Prints the card (`nvidia-smi` name and power limit), one line per case
-and a `SWEEP RESULT` line; exits 1 on a mismatch and 2 without a card.
+Prints the card (`nvidia-smi` name and power limit), one flushed line per
+case (CASES_PER_LEVEL for each level) and a `SWEEP RESULT` line; exits 1
+on a mismatch and 2 without a card. With --deadline-s the sweep stops
+BETWEEN levels once S seconds have passed and reports `SWEEP RESULT:
+PARTIAL ok=<levels>`, so that a caller with a time limit (bench_torch.py)
+keeps the levels that were proved.
 """
 
 from __future__ import annotations
@@ -23,7 +27,12 @@ import pathlib
 import subprocess
 import sys
 
+import time
+
 import numpy as np
+
+#: lines per level: two row shapes (fused / per-pass) x two carries
+CASES_PER_LEVEL = 4
 
 
 def main(argv) -> int:
@@ -35,6 +44,11 @@ def main(argv) -> int:
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
     from libacm_tpu_torch.ops import synth_cuda, synth_torch
 
+    t_start = time.monotonic()
+    deadline_s = None
+    for a in [a for a in argv if a.startswith("--deadline-s=")]:
+        deadline_s = float(a.split("=", 1)[1])
+        argv = [x for x in argv if x != a]
     levels = [int(a) for a in argv] or list(range(16))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -45,7 +59,11 @@ def main(argv) -> int:
     failures = 0
     cases = 0
     routes = set()
+    done: list[int] = []
     for level in levels:
+        if deadline_s is not None and time.monotonic() - t_start > deadline_s:
+            print(f"DEADLINE: stopping before level {level}", flush=True)
+            break
         cols = 1 << level
         # odd levels get +1 so that rows vary in parity across the sweep
         base = max(2, min(64, 2048 // cols)) + (level % 2)
@@ -85,9 +103,13 @@ def main(argv) -> int:
                       flush=True)
                 cases += 1
                 failures += 0 if ok else 1
+        done.append(level)
     if failures:
         print(f"SWEEP RESULT: FAIL mismatch={failures} of {cases}")
         return 1
+    if done != levels:
+        print(f"SWEEP RESULT: PARTIAL ok={','.join(map(str, done))}")
+        return 0
     print(f"SWEEP RESULT: PASS {cases} cases over levels "
           f"{levels[0]}-{levels[-1]}, routes {sorted(routes)}")
     return 0

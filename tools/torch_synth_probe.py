@@ -51,8 +51,8 @@ def phases(sc, dev, inputs) -> list[dict]:
     main-path shape, from a build of the kernel with -DSYNTH_PROFILE."""
     import torch
 
-    so = sc._BUILD_DIR / "synth-profile.so"
-    sc._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = sc.build_dir() / "synth-profile.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([sc._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-DSYNTH_PROFILE", "-shared",
                     "-Xcompiler", "-fPIC", "-o", str(so), str(sc._SRC)],
