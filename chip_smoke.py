@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. card:    the card's name and power limit (nvidia-smi); build the CUDA
-            synthesis kernels (nvcc, sm_90a) and the port's C++ scanner.
+            synthesis kernels (nvcc, sm_90a) and the port's C++ scanner,
+            while a thread encodes phase 3's corpus.
 2. parity:  each kernel route against the plain torch version on the card,
             random inputs from a numpy seed, on the PARITY geometries;
             tolerance 0 (PCM and final carry bit-equal).
@@ -1018,8 +1019,14 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     scanner_ok: list[bool] = []
     th = threading.Thread(target=lambda: scanner_ok.append(native.available()))
+    # the corpus is encoded (pure Python and numpy) while the compilers
+    # run in their own processes
+    encoded: list = []
+    enc = threading.Thread(target=lambda: encoded.append(
+        (make_corpus(testing), time.perf_counter())))
     t0 = time.perf_counter()
     th.start()
+    enc.start()
     so, ptxas = synth_cuda.build()
     t_nvcc = time.perf_counter() - t0
     th.join()
@@ -1054,11 +1061,12 @@ def main() -> int:
     phase_done("phase 2")
 
     # -- 3. main path at real size ------------------------------------------
-    t0 = time.perf_counter()
-    files = make_corpus(testing)
+    enc.join()
+    check(len(encoded) == 1, "the corpus was not encoded")
+    files, t_enc = encoded[0]
     print(f"phase 3: encoded {len(files)} files "
-          f"({sum(map(len, files)) / 1e6:.1f} MB) in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"({sum(map(len, files)) / 1e6:.1f} MB) in {t_enc - t0:.1f} s, "
+          "beside the builds")
     synth_cuda.reset_launches()
     t0 = time.perf_counter()
     dc = corpus.decode_corpus_device(files, device="cuda")
