@@ -15,8 +15,8 @@
 //
 // Two routes, chosen by the host wrapper (ops/synth_cuda.py):
 //
-// * synth_fused_kernel — rows >= 2, level >= 1, and a tile of one block
-//   leaves room for two CTAs per SM. It replaces an earlier
+// * synth_fused_kernel — level >= 1 and a tile of one block fits the
+//   shared memory of one CTA. It replaces an earlier
 //   one-tile-per-CTA design, which re-synthesized a predecessor block for
 //   every tile of T blocks, loaded its whole tile before its passes and
 //   stored it after (so memory and ALUs took turns), read and wrote shared
@@ -25,14 +25,17 @@
 //     in tiles of T blocks, in order: the loop inside the CTA takes the
 //     place of the TPU's sequential grid. Between tiles it carries each
 //     pass's last 2s inputs in shared memory, in the reference's wrap
-//     layout (pass p at offset sum_{q<p} 2*s_q). A span at block 0 starts
-//     from wrap0; any other span first synthesizes block blk0-1 from a
-//     zero carry and discards its PCM — exact for rows >= 2, since the
-//     zero halo pollutes at most the first 2*cols-2 outputs of that block
-//     and the carry is the block's last 2s inputs of each pass
-//     (libacm_tpu_torch.ops.synth_torch.carry_of_block). That costs one
-//     block per span, not per tile. The CTA whose span ends at block nb
-//     writes the carry to wrap_f.
+//     layout (pass p at offset sum_{q<p} 2*s_q). A span starting at
+//     block blk0 first synthesizes the `warm` blocks before it,
+//     from first = max(blk0 - warm, 0), and discards their PCM: from
+//     wrap0 where first == 0, else from a zero carry. The zero halo
+//     pollutes at most the first 2*cols-2 outputs counted from block
+//     first, and the carry is the last 2s inputs of each pass, so
+//     warm = W = ceil((2*cols-2) / (rows*cols)) blocks leave the exact
+//     carry (libacm_tpu_torch.ops.synth_torch.warmup_blocks: 1 for
+//     rows >= 2, 2 for rows == 1 from level 2). That costs W blocks per
+//     span, not per tile. The CTA whose span ends at block nb writes the
+//     carry to wrap_f.
 //   - The tile is sized for two resident CTAs per SM, and the spans for
 //     about one wave of them (synth_cuda.fused_plan).
 //   - The next tile's k and vals are copied into a second staging buffer
@@ -52,8 +55,8 @@
 //     consecutive elements a thread, their halos shuffled from the lane
 //     before (last_passes), and PCM leaves in 16-byte stores, so they cost
 //     no shared-memory traffic, no barrier and no store sweep.
-// * synth_pass_kernel — every other geometry (rows == 1, where the re-synth
-//   is not exact; tiles too large for shared memory; level 0). One launch
+// * synth_pass_kernel — every other geometry (tiles too large for shared
+//   memory; level 0). One launch
 //   per pass over each file's whole flat stream in device memory, the halo
 //   read from the flat predecessor or wrap0. Dequantize is fused into pass 0
 //   and the shift into the last pass.
@@ -385,7 +388,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
                    const int32_t* __restrict__ vals,
                    const int32_t* __restrict__ wrap0,
                    int16_t* __restrict__ pcm, int32_t* __restrict__ wrapf,
-                   int nb, int level, int rows, int T, int span) {
+                   int nb, int level, int rows, int T, int span, int warm) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int cols = 1 << level;
   const int n = rows << level;
@@ -402,7 +405,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   const int b = blockIdx.y;
   const int blk0 = blockIdx.x * span;
   const int blk_end = min(nb, blk0 + span);
-  const int first = blk0 ? blk0 - 1 : 0;  // the re-synthesized block
+  const int first = max(blk0 - warm, 0);  // the first warm-up block
   const int ntiles = (blk_end - first + T - 1) / T;
   const int16_t* kf = k + (int64_t)b * nb * n;
   const int32_t* vf = vals + (int64_t)b * nb;
@@ -419,7 +422,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   PROF_DECL;
   PROF_T(t_cta);
   const int32_t* w0 = wrap0 + (int64_t)b * wlen;
-  for (int i = tid; i < wlen; i += nt) carry[i] = blk0 ? 0u : (uint32_t)w0[i];
+  for (int i = tid; i < wlen; i += nt) carry[i] = first ? 0u : (uint32_t)w0[i];
   stage_tile(kf + (int64_t)first * n, vf + first, stg, tv, min(T, blk_end - first), n,
              width);
   __syncthreads();  // the carry
@@ -540,7 +543,7 @@ synth_fused_kernel(const int16_t* __restrict__ k,
     }
 
     PROF_T(t_last);
-    const int skip = tblk < blk0 ? n : 0;
+    const int skip = min(max(blk0 - tblk, 0) * n, N);  // warm-up PCM
     const int64_t e0 = ((int64_t)b * nb + tblk) * n;  // PCM index of element 0
     const bool vec = pcm16 && (e0 & 7) == 0;
     switch (K) {
@@ -620,14 +623,14 @@ static cudaError_t fused_attributes(long long smem_bytes) {
 // Returns cudaGetLastError() after the launch (0 on success).
 int acm_synth_fused(const void* k, const void* vals, const void* wrap0,
                     void* pcm, void* wrapf, int B, int nb, int level, int rows,
-                    int T, int span, int threads, long long smem_bytes,
-                    void* stream) {
+                    int T, int span, int warm, int threads,
+                    long long smem_bytes, void* stream) {
   cudaError_t e = fused_attributes(smem_bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((nb + span - 1) / span, B);
   synth_fused_kernel<<<grid, threads, (size_t)smem_bytes, (cudaStream_t)stream>>>(
       (const int16_t*)k, (const int32_t*)vals, (const int32_t*)wrap0,
-      (int16_t*)pcm, (int32_t*)wrapf, nb, level, rows, T, span);
+      (int16_t*)pcm, (int32_t*)wrapf, nb, level, rows, T, span, warm);
   return (int)cudaGetLastError();
 }
 

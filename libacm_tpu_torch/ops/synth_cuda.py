@@ -17,18 +17,19 @@ pass, the shift). On an H100 that makes the bytes bound the larger at
 7/16 and 4/40 and the operations bound the larger at 10/4 (chip_smoke.py
 `bound`). Two routes:
 
-- fused (`synth_fused_kernel`): rows >= 2, level >= 1, and a tile of one
-  block leaves room for two CTAs per SM. One launch per call. Each CTA
+- fused (`synth_fused_kernel`): level >= 1 and a tile of one block
+  leaves room for two CTAs per SM. One launch per call. Each CTA
   walks a span of consecutive blocks of one file in tiles of T blocks,
   carrying the halo between tiles; a span that does not start at block 0
-  first re-synthesizes the block before it from a zero carry (exact for
-  rows >= 2, see synth_torch.carry_of_block). k is prefetched into shared
+  first synthesizes the W = synth_torch.warmup_blocks(level, rows) blocks
+  before it (1 for rows >= 2, 2 for rows == 1) from a zero carry, or from
+  wrap0 where they reach block 0, and drops their PCM. k is prefetched into shared
   memory while the previous tile's passes run; the passes walk strips in
   place, the last three run in registers and write 16-byte PCM stores.
   `fused_plan` sizes the tile for two resident CTAs per SM and the spans
   for about one wave of them.
-- per pass (`synth_pass_kernel`): rows == 1, tiles too large for shared
-  memory, and level 0. One launch per pass (one for level 0) over each
+- per pass (`synth_pass_kernel`): tiles too large for shared memory, and
+  level 0. One launch per pass (one for level 0) over each
   file's flat stream in device memory.
 """
 
@@ -140,7 +141,8 @@ def _load():
             lib.acm_synth_fused.restype = ci
             lib.acm_synth_fused.argtypes = [
                 vp, vp, vp, vp, vp,  # k, vals, wrap0, pcm, wrapf
-                ci, ci, ci, ci, ci, ci, ci,  # B, nb, level, rows, T, span, threads
+                ci, ci, ci, ci, ci, ci,  # B, nb, level, rows, T, span
+                ci, ci,  # warm-up blocks, threads
                 ctypes.c_longlong, vp,  # smem bytes, stream
             ]
             lib.acm_synth_occupancy.restype = ci
@@ -171,9 +173,9 @@ def fused_smem_bytes(level: int, rows: int, T: int) -> int:
 def fused_tile(level: int, rows: int, nb: int) -> int:
     """Blocks per tile on the fused route: the largest tile, at most nb,
     for which two CTAs fit on an SM (TILE_SMEM); 0 where the route does
-    not apply (level 0, rows == 1, or not even one block fits).
+    not apply (level 0, or not even one block fits).
     """
-    if level < 1 or rows < 2 or fused_smem_bytes(level, rows, 1) > TILE_SMEM:
+    if level < 1 or fused_smem_bytes(level, rows, 1) > TILE_SMEM:
         return 0
     lo, hi = 1, max(nb, 1)
     while lo < hi:  # largest T in [1, nb] that fits TILE_SMEM
@@ -194,14 +196,14 @@ def fused_plan(level: int, rows: int, B: int, nb: int,
     tile (SMs x CTAs per SM). Each file is cut into slots // B spans of
     equal length (at least one), so the grid of B * ceil(nb / span) CTAs
     is at most one wave where B <= slots. A span that does not start at
-    block 0 also synthesizes the block before it, so a tile larger than
-    span + 1 blocks is cut to that.
+    block 0 also synthesizes the W = synth_torch.warmup_blocks(level, rows)
+    blocks before it, so a tile larger than span + W blocks is cut to that.
     """
     T = fused_tile(level, rows, nb)
     if not T:
         return 0, 0
     span = -(-nb // max(1, min(slots // max(B, 1), nb)))
-    return min(T, span + 1), span
+    return min(T, span + synth_torch.warmup_blocks(level, rows)), span
 
 
 _occupancy: dict[tuple[int, str, int], int] = {}
@@ -302,8 +304,8 @@ def synth_pcm_batch(
             rc = lib.acm_synth_fused(
                 k.data_ptr(), vals.data_ptr(), wrap0.data_ptr(),
                 pcm.data_ptr(), wrapf.data_ptr(), B, nb, level, rows,
-                cfg["T"], cfg["span"], _FUSED_THREADS, cfg["smem_bytes"],
-                stream)
+                cfg["T"], cfg["span"], synth_torch.warmup_blocks(level, rows),
+                _FUSED_THREADS, cfg["smem_bytes"], stream)
             if rc:
                 raise RuntimeError(f"synth_fused_kernel launch failed: "
                                    f"cudaError {rc}")

@@ -132,28 +132,49 @@ def synth_pcm_batch(
     return words_to_pcm(words, level=level), wrap_f
 
 
+def warmup_blocks(level: int, rows: int) -> int:
+    """Blocks to synthesize from a zero carry before a block whose true
+    carry-in is unknown: W = ceil((2*cols - 2) / (rows*cols)).
+
+    Pass p's zero halo pollutes its output from the start of the first
+    warm-up block up to sum_{q<=p} 2*s_q, so pass p's input is polluted up
+    to 2*cols - 4*s_p, while the carry of pass p is the last 2*s_p inputs
+    of the last warm-up block. W blocks of rows*cols elements leave every
+    pass's carry clean iff W*rows*cols >= 2*cols - 2*s_p for every p, and
+    the last pass (s = 1) sets W. So W is 1 for rows >= 2, 1 at level 1,
+    2 for rows == 1 from level 2 (where one block leaves pass 1's carry
+    wrong), and 0 at level 0 (no carry). The fused CUDA kernel and
+    carry_of_block rest on it.
+    """
+    cols = 1 << level
+    return -(-(2 * cols - 2) // (rows * cols))
+
+
 def carry_of_block(
-    k: torch.Tensor,  # int16/int32 [rows, cols] — block i-1's coefficients
-    val: torch.Tensor,  # scalar int32
+    k: torch.Tensor,  # int16/int32 [W, rows, cols] or [rows, cols]
+    val: torch.Tensor,  # int32 [W] or scalar
     *,
     level: int,
     rows: int,
 ) -> torch.Tensor:
-    """Exact wrap carry left behind by a block, from that block alone.
+    """Exact wrap carry left behind by the last of W consecutive blocks,
+    from those W blocks alone, W = warmup_blocks(level, rows).
 
-    For rows >= 2 the incoming carry pollutes only the first 2*cols-2
-    elements of the last pass's output, while the outgoing carry is the
-    tail 2*sub_len elements of each pass *input* — the regions never
-    overlap (block_len >= 2*cols). Synthesizing one block from a zero
-    carry therefore yields the true carry state. Callers must check
-    rows >= 2. The fused CUDA kernel rests on the same fact: each tile
-    re-synthesizes the block before it from a zero carry.
+    The incoming carry pollutes only the first 2*cols-2 outputs of the
+    last pass counted from the first block, while the outgoing carry is
+    the tail 2*sub_len elements of each pass *input* of the last block —
+    the regions never overlap once W*rows*cols >= 2*cols - 2. So
+    synthesizing those blocks from a zero carry yields the true carry
+    state. For rows >= 2 one block is enough, and a single block may be
+    given as [rows, cols] with a scalar val. Callers must give W blocks.
+    The fused CUDA kernel rests on the same fact: each span first
+    synthesizes the W blocks before it from a zero carry.
     """
     cols = 1 << level
     wrap0 = torch.zeros(max(2 * cols - 2, 1), dtype=torch.int32,
                         device=k.device)
-    _, wrap = synth_words(k[None], val.reshape(1), wrap0, level=level,
-                          rows=rows)
+    k = k.reshape(-1, rows, cols)
+    _, wrap = synth_words(k, val.reshape(-1), wrap0, level=level, rows=rows)
     return wrap
 
 

@@ -51,9 +51,13 @@ def _inputs(dev, level, rows, B, nb, k_offset=0):
     (7, 16, 3, 41, "synth_fused"), (4, 40, 2, 37, "synth_fused"),
     (10, 4, 2, 9, "synth_fused"), (5, 33, 2, 5, "synth_fused"),
     (9, 3, 2, 6, "synth_fused"), (1, 2, 2, 11, "synth_fused"),
-    (0, 2048, 2, 5, "synth_pass"), (10, 1, 2, 6, "synth_pass"),
+    (0, 2048, 2, 5, "synth_pass"), (10, 1, 2, 6, "synth_fused"),
     (14, 1, 1, 4, "synth_pass"), (15, 16, 1, 3, "synth_pass"),
-    (2, 1, 3, 7, "synth_pass"),
+    (2, 1, 3, 7, "synth_fused"),
+    # rows == 1 on the fused route (two warm-up blocks from level 2): levels
+    # 1, 7, 12, and spans of one block, so that spans start at block 1
+    (1, 1, 2, 9, "synth_fused"), (7, 1, 2, 40, "synth_fused"),
+    (12, 1, 1, 5, "synth_fused"), (7, 1, 1, 100, "synth_fused"),
     # fused edges: many files; nb below one tile; n % 8 != 0 (copies of
     # k narrower than 16 bytes); spans of several tiles cut mid-file; a
     # tile of one block
@@ -73,6 +77,28 @@ def test_kernel_matches_plain(level, rows, B, nb, route):
     assert torch.equal(got_pcm, want_pcm)
     if level:
         assert torch.equal(got_w, want_w)
+
+
+def test_rows1_stream_window_is_one_fused_launch():
+    """A rows == 1 stream decoded in windows: one fused launch a window,
+    PCM equal to the host decoder."""
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.parallel import (decode_corpus_host,
+                                           decode_stream_device)
+
+    _card()
+    data = testing.speech_acm_bytes(np.random.default_rng(8), level=7,
+                                    rows=1, n_blocks=300)
+    host = decode_corpus_host([data])[0]
+    sc.reset_launches()
+    pcm, meta = decode_stream_device(data, device="cuda", window_blocks=64)
+    torch.cuda.synchronize()
+    assert sc.launches["synth_fused"] == 5
+    assert sum(sc.launches.values()) == 5
+    got = pcm.cpu().numpy().reshape(-1)[: len(host.pcm)]
+    np.testing.assert_array_equal(got, host.pcm)
+    assert (meta.status, meta.filler_words) == (host.status,
+                                                host.filler_words)
 
 
 def test_kernel_rejects_bad_input():

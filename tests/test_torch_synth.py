@@ -227,9 +227,11 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span,
                  nt=sc._FUSED_THREADS):
     """synth_fused_kernel's schedule in torch, uint32 math as int64 & M32.
 
-    One "CTA" of nt threads per (file, span of `span` blocks). The span
-    at block 0 starts from wrap0; any other span first synthesizes block
-    blk0-1 from a zero carry and discards its PCM. The CTA walks its
+    One "CTA" of nt threads per (file, span of `span` blocks). A span at
+    blk0 starts at block first = max(blk0 - W, 0), W =
+    st.warmup_blocks(level, rows), from wrap0 where first == 0 and from a
+    zero carry elsewhere, and discards the PCM of blocks before blk0 (a
+    whole tile of it where a tile is shorter than W). The CTA walks its
     blocks in tiles of T, in order, carrying each pass's last 2s inputs
     in an array of 2*cols-2 words in wrap layout (pass p at offset sum of
     2*s_q, q < p). Pass 0 dequantizes the tile's staged k with the vals of
@@ -243,6 +245,7 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span,
     n = rows * cols
     wlen = 2 * cols - 2
     R2 = 2 * rows  # pass-0 steps per block
+    W = st.warmup_blocks(level, rows)
     kk = k.to(torch.int64).reshape(B, nb * n)
     vv = vals.to(torch.int64)
     w0 = wrap0.to(torch.int64) & _M32
@@ -251,8 +254,8 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span,
     for b in range(B):
         for blk0 in range(0, nb, span):
             blk_end = min(nb, blk0 + span)
-            first = blk0 - 1 if blk0 else 0
-            carry = w0[b].clone() if blk0 == 0 else torch.zeros(
+            first = max(blk0 - W, 0)
+            carry = w0[b].clone() if first == 0 else torch.zeros(
                 wlen, dtype=torch.int64)
             for tblk in range(first, blk_end, T):
                 Tt = min(T, blk_end - tblk)
@@ -274,7 +277,7 @@ def _fused_model(k, vals, wrap0, *, level, rows, T, span,
                                 sh=sh, N=N, nt=nt, bias=False)
                     off += 2 << sh
                 y = _last_passes(X, carry, N=N, wlen=wlen, K=K)
-                skip = max(blk0 - tblk, 0) * n  # the re-synthesized block
+                skip = min(max(blk0 - tblk, 0) * n, N)  # warm-up blocks
                 pcm[b, tblk * n + skip : tblk * n + N] = _to_pcm(y, level)[
                     skip:]
             if blk_end == nb:
@@ -298,6 +301,7 @@ def _check_model(level, rows, B, nb, T, span, nt=sc._FUSED_THREADS):
     (7, 16, 1, 9, None),  # the plan's own tile
     (4, 40, 2, 5, 2), (10, 4, 1, 4, 1), (5, 33, 2, 3, 2), (9, 3, 1, 5, 4),
     (1, 2, 2, 6, 4), (3, 2, 1, 8, 8), (12, 2, 1, 3, None),
+    (7, 1, 2, 5, None), (3, 1, 1, 8, 2), (1, 1, 2, 5, None),  # rows == 1
 ])
 def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
     """The plan for a card with two slots per file: two spans per file,
@@ -324,6 +328,13 @@ def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
     (2, 3, 2, 7, 2, 3, 16),  # n % 8 != 0
     (2, 40, 1, 4, 3, 4, 256), (3, 40, 1, 3, 2, 3, 256),  # K = 1, 2
     (5, 33, 2, 3, 2, 2, 64), (12, 2, 1, 3, None, None, 256),
+    # rows == 1 (W = 2 from level 2): spans that start at block 1 (their
+    # warm-up reaches block 0 and takes wrap0), tiles shorter than W
+    # (whole tiles of warm-up PCM dropped), spans of several tiles
+    (7, 1, 2, 6, 1, 1, 256), (7, 1, 1, 9, 2, 3, 256),
+    (7, 1, 2, 7, 4, 2, 256), (2, 1, 2, 9, 1, 2, 16), (2, 1, 1, 6, 3, 1, 8),
+    (1, 1, 2, 7, 2, 2, 32),  # level 1: W = 1
+    (12, 1, 1, 4, 1, 1, 256), (7, 1, 3, 40, None, None, 256),
 ])
 def test_fused_schedule_model_edges(level, rows, B, nb, T, span, nt):
     if T is None:
@@ -336,13 +347,13 @@ def test_fused_schedule_model_edges(level, rows, B, nb, T, span, nt):
     (7, 16, 320, "fused"), (4, 40, 1216, "fused"), (10, 4, 160, "fused"),
     (5, 33, 64, "fused"), (9, 3, 8, "fused"), (12, 2, 4, "fused"),
     (11, 3, 4, "fused"), (1, 3, 5, "fused"), (12, 3, 2, "pass"),
-    (0, 2048, 416, "pass"), (10, 1, 8, "pass"), (14, 1, 4, "pass"),
+    (0, 2048, 416, "pass"), (10, 1, 8, "fused"), (14, 1, 4, "pass"),
     (15, 16, 2, "pass"), (13, 2, 4, "pass"),
 ])
 def test_fused_tile_predicate(level, rows, nb, route):
-    """Fused route iff level >= 1, rows >= 2 and a tile of one block
-    leaves room for two CTAs per SM; the tile is the largest for which two
-    CTAs fit."""
+    """Fused route iff level >= 1 and a tile of one block leaves room for
+    two CTAs per SM (rows == 1 included); the tile is the largest for
+    which two CTAs fit."""
     T = sc.fused_tile(level, rows, nb)
     assert (T >= 1) == (route == "fused")
     if T:
@@ -355,6 +366,7 @@ def test_fused_tile_predicate(level, rows, nb, route):
 @pytest.mark.parametrize("level,rows,B,nb,slots", [
     (7, 16, 25, 320, 264), (4, 40, 15, 1216, 264), (10, 4, 10, 160, 264),
     (7, 16, 400, 13, 264), (7, 16, 1, 3, 264), (4, 40, 7, 100, 30),
+    (7, 1, 1, 512, 264), (7, 1, 1, 4800, 264),
 ])
 def test_fused_plan_fills_one_wave(level, rows, B, nb, slots):
     """Spans cut each file evenly; the grid is at most one wave of
@@ -363,7 +375,8 @@ def test_fused_plan_fills_one_wave(level, rows, B, nb, slots):
     re-synthesized before it."""
     T, span = sc.fused_plan(level, rows, B, nb, slots)
     grid = B * -(-nb // span)
-    assert 1 <= T <= min(sc.fused_tile(level, rows, nb), span + 1)
+    assert 1 <= T <= min(sc.fused_tile(level, rows, nb),
+                         span + st.warmup_blocks(level, rows))
     if B <= slots:
         assert grid <= slots
         assert span == 1 or B * -(-nb // (span - 1)) > slots

@@ -25,10 +25,17 @@ import sys
 
 import numpy as np
 
-#: the fused and per-pass shapes decode_corpus_device gives the kernel on
-#: the bench corpus mix (level, rows, files, blocks per file)
+#: (level, rows, files, blocks per file): the shapes decode_corpus_device
+#: gives the kernel on the bench corpus mix, then those of the stream
+#: windows, the whole-file stream, the dense route and the sharded corpus,
+#: then blocks that fit one CTA per SM or no CTA at all
 SHAPES = [(7, 16, 25, 320), (4, 40, 15, 1216), (10, 4, 10, 160),
-          (0, 2048, 5, 416)]
+          (0, 2048, 5, 416),
+          (7, 16, 1, 2048), (7, 1, 1, 512), (0, 2048, 1, 64),
+          (7, 1, 1, 4800), (0, 2048, 1, 400), (0, 2048, 2, 416),
+          (0, 2048, 3, 416),
+          (13, 2, 1, 4), (12, 4, 1, 4), (10, 16, 2, 8), (14, 1, 1, 4),
+          (15, 16, 1, 3)]
 
 
 def main() -> int:
