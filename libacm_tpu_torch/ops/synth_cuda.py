@@ -17,8 +17,9 @@ pass, the shift). On an H100 that makes the bytes bound the larger at
 7/16 and 4/40 and the operations bound the larger at 10/4 (chip_smoke.py
 `bound`). Two routes:
 
-- fused (`synth_fused_kernel`): level >= 1 and a tile of one block
-  leaves room for two CTAs per SM. One launch per call. Each CTA
+- fused (`synth_fused_kernel`): level >= 1 and a tile of one block fits
+  one CTA's shared memory: tiles for two CTAs per SM where one block
+  leaves room for two, else for one. One launch per call. Each CTA
   walks a span of consecutive blocks of one file in tiles of T blocks,
   carrying the halo between tiles; a span that does not start at block 0
   first synthesizes the W = synth_torch.warmup_blocks(level, rows) blocks
@@ -26,7 +27,7 @@ pass, the shift). On an H100 that makes the bytes bound the larger at
   wrap0 where they reach block 0, and drops their PCM. k is prefetched into shared
   memory while the previous tile's passes run; the passes walk strips in
   place, the last three run in registers and write 16-byte PCM stores.
-  `fused_plan` sizes the tile for two resident CTAs per SM and the spans
+  `fused_plan` sizes the tile for the resident CTAs per SM and the spans
   for about one wave of them.
 - per pass (`synth_pass_kernel`): tiles too large for shared memory, and
   level 0. One launch per pass (one for level 0) over each
@@ -60,6 +61,9 @@ SM_SMEM = 233472
 CTA_RESERVED = 1024
 #: a fused tile's budget: two CTAs resident per SM
 TILE_SMEM = SM_SMEM // 2 - CTA_RESERVED
+#: the budget where one block does not fit TILE_SMEM: one CTA per SM (the
+#: opt-in limit of one CTA's dynamic shared memory, 227 KB)
+ONE_CTA_SMEM = SM_SMEM - CTA_RESERVED
 #: threads per fused CTA: a power of two (the kernel sizes strips by
 #: shifts), at most the kernel's __launch_bounds__
 _FUSED_THREADS = 256
@@ -170,17 +174,26 @@ def fused_smem_bytes(level: int, rows: int, T: int) -> int:
     return 4 * (_up(2 * cols - 2, 4) + _up(2 * T, 4) + tile) + 2 * 2 * tile
 
 
+def fused_budget(level: int, rows: int) -> int:
+    """Shared memory a fused CTA may take: TILE_SMEM (two CTAs per SM)
+    where one block fits it, else ONE_CTA_SMEM (one CTA per SM)."""
+    return (TILE_SMEM if fused_smem_bytes(level, rows, 1) <= TILE_SMEM
+            else ONE_CTA_SMEM)
+
+
 def fused_tile(level: int, rows: int, nb: int) -> int:
     """Blocks per tile on the fused route: the largest tile, at most nb,
-    for which two CTAs fit on an SM (TILE_SMEM); 0 where the route does
-    not apply (level 0, or not even one block fits).
+    that fits fused_budget (two CTAs per SM where one block leaves room
+    for two, else one); 0 where the route does not apply (level 0, or not
+    even one block fits one CTA).
     """
-    if level < 1 or fused_smem_bytes(level, rows, 1) > TILE_SMEM:
+    budget = fused_budget(level, rows)
+    if level < 1 or fused_smem_bytes(level, rows, 1) > budget:
         return 0
     lo, hi = 1, max(nb, 1)
-    while lo < hi:  # largest T in [1, nb] that fits TILE_SMEM
+    while lo < hi:  # largest T in [1, nb] that fits the budget
         mid = (lo + hi + 1) // 2
-        if fused_smem_bytes(level, rows, mid) <= TILE_SMEM:
+        if fused_smem_bytes(level, rows, mid) <= budget:
             lo = mid
         else:
             hi = mid - 1

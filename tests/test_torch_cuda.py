@@ -58,6 +58,10 @@ def _inputs(dev, level, rows, B, nb, k_offset=0):
     # 1, 7, 12, and spans of one block, so that spans start at block 1
     (1, 1, 2, 9, "synth_fused"), (7, 1, 2, 40, "synth_fused"),
     (12, 1, 1, 5, "synth_fused"), (7, 1, 1, 100, "synth_fused"),
+    # one CTA per SM: a block does not leave room for two
+    (13, 2, 1, 4, "synth_fused"), (12, 4, 2, 3, "synth_fused"),
+    (10, 16, 2, 8, "synth_fused"), (12, 3, 1, 7, "synth_fused"),
+    (11, 8, 1, 3, "synth_fused"), (13, 1, 2, 5, "synth_fused"),
     # fused edges: many files; nb below one tile; n % 8 != 0 (copies of
     # k narrower than 16 bytes); spans of several tiles cut mid-file; a
     # tile of one block
@@ -136,6 +140,17 @@ def test_fused_config_two_ctas_per_sm():
         cfg = sc.fused_config(level, rows, B, nb, dev)
         assert cfg["ctas_per_sm"] >= 2, (level, rows, cfg)
         assert cfg["grid"][0] * cfg["grid"][1] <= sms * cfg["ctas_per_sm"]
+
+
+def test_fused_config_one_cta_per_sm():
+    """Blocks that leave no room for a second CTA take the fused route at
+    one resident CTA per SM, within the opt-in limit of 227 KB."""
+    dev = _card()
+    for level, rows, B, nb in [(13, 2, 1, 4), (12, 4, 2, 3), (10, 16, 2, 8),
+                               (12, 3, 1, 7), (11, 8, 1, 3), (13, 1, 2, 5)]:
+        cfg = sc.fused_config(level, rows, B, nb, dev)
+        assert cfg["ctas_per_sm"] == 1, (level, rows, cfg)
+        assert cfg["smem_bytes"] <= sc.ONE_CTA_SMEM
 
 
 @pytest.mark.parametrize("seed", range(8))

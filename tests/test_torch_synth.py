@@ -335,10 +335,13 @@ def test_fused_schedule_model_matches_plain(level, rows, B, nb, T):
     (7, 1, 2, 7, 4, 2, 256), (2, 1, 2, 9, 1, 2, 16), (2, 1, 1, 6, 3, 1, 8),
     (1, 1, 2, 7, 2, 2, 32),  # level 1: W = 1
     (12, 1, 1, 4, 1, 1, 256), (7, 1, 3, 40, None, None, 256),
+    # one CTA per SM: the plan's tile for a card with 132 slots
+    (12, 3, 1, 3, None, None, 256), (13, 1, 1, 3, 2, 1, 256),
 ])
 def test_fused_schedule_model_edges(level, rows, B, nb, T, span, nt):
     if T is None:
-        T, span = sc.fused_plan(level, rows, B, nb, slots=264)
+        slots = 264 if sc.fused_budget(level, rows) == sc.TILE_SMEM else 132
+        T, span = sc.fused_plan(level, rows, B, nb, slots=slots)
     assert T >= 1 and span >= 1
     _check_model(level, rows, B, nb, T, span, nt)
 
@@ -346,21 +349,29 @@ def test_fused_schedule_model_edges(level, rows, B, nb, T, span, nt):
 @pytest.mark.parametrize("level,rows,nb,route", [
     (7, 16, 320, "fused"), (4, 40, 1216, "fused"), (10, 4, 160, "fused"),
     (5, 33, 64, "fused"), (9, 3, 8, "fused"), (12, 2, 4, "fused"),
-    (11, 3, 4, "fused"), (1, 3, 5, "fused"), (12, 3, 2, "pass"),
+    (11, 3, 4, "fused"), (1, 3, 5, "fused"), (12, 3, 2, "fused, one CTA"),
     (0, 2048, 416, "pass"), (10, 1, 8, "fused"), (14, 1, 4, "pass"),
-    (15, 16, 2, "pass"), (13, 2, 4, "pass"),
+    (15, 16, 2, "pass"), (13, 2, 4, "fused, one CTA"),
+    (10, 16, 3, "fused, one CTA"), (11, 8, 2, "fused, one CTA"),
+    (12, 4, 5, "fused, one CTA"), (13, 1, 4, "fused, one CTA"),
+    (7, 1, 4800, "fused"), (11, 16, 2, "pass"), (12, 8, 2, "pass"),
+    (13, 3, 2, "pass"),
 ])
 def test_fused_tile_predicate(level, rows, nb, route):
-    """Fused route iff level >= 1 and a tile of one block leaves room for
-    two CTAs per SM (rows == 1 included); the tile is the largest for
-    which two CTAs fit."""
+    """Fused route iff level >= 1 and a tile of one block fits one CTA
+    (rows == 1 included); the tile is the largest for which two CTAs fit
+    an SM where one block leaves room for two, else for which one does."""
     T = sc.fused_tile(level, rows, nb)
-    assert (T >= 1) == (route == "fused")
+    assert (T >= 1) == route.startswith("fused")
     if T:
-        assert 2 * (sc.fused_smem_bytes(level, rows, T)
-                    + sc.CTA_RESERVED) <= sc.SM_SMEM
-        assert T == nb or sc.fused_smem_bytes(level, rows,
-                                              T + 1) > sc.TILE_SMEM
+        ctas = 1 if route.endswith("one CTA") else 2
+        budget = sc.fused_budget(level, rows)
+        assert budget == (sc.TILE_SMEM if ctas == 2 else sc.ONE_CTA_SMEM)
+        assert ctas * (sc.fused_smem_bytes(level, rows, T)
+                       + sc.CTA_RESERVED) <= sc.SM_SMEM
+        assert (sc.fused_smem_bytes(level, rows, 1) > sc.TILE_SMEM) == (
+            ctas == 1)
+        assert T == nb or sc.fused_smem_bytes(level, rows, T + 1) > budget
 
 
 @pytest.mark.parametrize("level,rows,B,nb,slots", [
