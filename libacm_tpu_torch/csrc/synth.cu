@@ -74,6 +74,7 @@
 // and the phase trace (SYNTH_PROFILE) of where a CTA's cycles go.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -564,44 +565,195 @@ synth_fused_kernel(const int16_t* __restrict__ k,
   PROF_WRITE;
 }
 
-// One FIR pass over each file's flat stream of L = nb*n words. FROM_K:
-// the input is k*val (dequantize fused); else xin. TO_PCM: the output is
-// shifted and truncated into pcm (last pass); else written to xout. Level
-// 0 runs this once with no FIR: dequantize and shift only.
-template <bool FROM_K, bool TO_PCM>
+// Level 0: no pass, pcm = (int16)(k * val). Bytes-bound (4 bytes a
+// sample). Each thread converts one vector of VEC samples (16, 8, 4 or 2
+// bytes of k by alignment, synth_cuda.level0_plan), read and written in
+// one access each. The CTA is a (tx, ty) patch: ty blocks of the flat
+// [B*nb] axis by tx vectors of a block, so the block's val is one load a
+// vector and no index is divided.
+template <int VEC> struct Vec;
+template <> struct Vec<8> { using T = uint4; };
+template <> struct Vec<4> { using T = uint2; };
+template <> struct Vec<2> { using T = uint32_t; };
+template <> struct Vec<1> { using T = uint16_t; };
+
+template <int VEC>
+__global__ void __launch_bounds__(256)
+synth_level0_kernel(const int16_t* __restrict__ k, const int32_t* __restrict__ vals,
+                    int16_t* __restrict__ pcm, long long nblk, int n) {
+  using T = typename Vec<VEC>::T;
+  const long long blk = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const int v = blockIdx.y * blockDim.x + threadIdx.x;
+  if (blk >= nblk || v >= n / VEC) return;
+  const uint32_t val = (uint32_t)vals[blk];
+  const long long e = blk * n + (long long)v * VEC;
+  T raw = *(const T*)(k + e);
+  int16_t x[VEC];
+  memcpy(x, &raw, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) x[i] = (int16_t)(uint16_t)((uint32_t)(int32_t)x[i] * val);
+  memcpy(&raw, x, sizeof(T));
+  *(T*)(pcm + e) = raw;
+}
+
+// One wide FIR pass (stride s > synth_cuda.TAIL_STRIDE, so s >= 2048)
+// over each file's flat stream of L = nb*n words in device memory: the
+// passes whose halo is too wide for a shared-memory tile. Each thread
+// takes 4 consecutive outputs: f, f-s and f-2s are 16-byte aligned and
+// share one sign, so the three inputs are 16-byte loads (8-byte loads of
+// k for pass 0, which dequantizes with one val a vector) and the output
+// one 16-byte store. The halo f < 0 comes from wrap0; the last 2s inputs
+// are the pass's carry. Needs n % 4 == 0, which s >= 2048 gives.
+__device__ __forceinline__ void load4(const int16_t* __restrict__ k,
+                                      const uint32_t* __restrict__ xin,
+                                      const int32_t* __restrict__ vf,
+                                      const int32_t* __restrict__ w0, int64_t base,
+                                      int g, int n, bool from_k, bool k8,
+                                      uint32_t (&x)[4]) {
+  if (g < 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = (uint32_t)w0[g + i];
+  } else if (from_k) {
+    const uint32_t v = (uint32_t)vf[g / n];  // n % 4 == 0: one block
+    int16_t h[4];
+    if (k8) {
+      const uint2 u = *(const uint2*)(k + base + g);
+      memcpy(h, &u, 8);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = k[base + g + i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = (uint32_t)(int32_t)h[i] * v;
+  } else {
+    const uint4 u = *(const uint4*)(xin + base + g);
+    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+  }
+}
+
 __global__ void __launch_bounds__(256)
 synth_pass_kernel(const int16_t* __restrict__ k, const uint32_t* __restrict__ xin,
                   const int32_t* __restrict__ vals, const int32_t* __restrict__ wrap0,
-                  uint32_t* __restrict__ xout, int16_t* __restrict__ pcm,
-                  int32_t* __restrict__ wrapf, int nb, int level, int rows, int p,
-                  int off) {
+                  uint32_t* __restrict__ xout, int32_t* __restrict__ wrapf, int nb,
+                  int level, int rows, int p, int k8) {
   const int n = rows << level;
   const int L = nb * n;
-  const int wlen = 2 * (1 << level) - 2;
+  const int cols = 1 << level, wlen = 2 * cols - 2;
   const int b = blockIdx.y;
   const int64_t base = (int64_t)b * L;
-  const int sh = level - 1 - p;
-  const int s = level ? 1 << sh : 0;
-
-  auto load = [&](int g) -> uint32_t {
-    if (g < 0) return (uint32_t)wrap0[(int64_t)b * wlen + off + 2 * s + g];
-    if (FROM_K) return (uint32_t)(int32_t)k[base + g] * (uint32_t)vals[(int64_t)b * nb + g / n];
-    return xin[base + g];
-  };
-
-  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < L; f += gridDim.x * blockDim.x) {
-    uint32_t y;
-    if (level == 0) {
-      y = load(f);
-    } else {
-      const uint32_t a = load(f);
-      y = fir(a, load(f - s), load(f - 2 * s), f, sh, p == 0);
-      if (f >= L - 2 * s) wrapf[(int64_t)b * wlen + off + f - (L - 2 * s)] = (int32_t)a;
+  const int sh = level - 1 - p, s = 1 << sh;
+  const int off = 2 * cols - 4 * s;  // sum_{q<p} 2*s_q
+  const int32_t* vf = vals + (int64_t)b * nb;
+  const int32_t* w0 = wrap0 + (int64_t)b * wlen + off + 2 * s;  // w0[-2s .. -1]
+  int32_t* wf = wrapf + (int64_t)b * wlen + off;
+  for (int f = 4 * (blockIdx.x * blockDim.x + threadIdx.x); f < L;
+       f += 4 * gridDim.x * blockDim.x) {
+    uint32_t a[4], m[4], c[4];
+    load4(k, xin, vf, w0, base, f, n, p == 0, k8, a);
+    load4(k, xin, vf, w0, base, f - s, n, p == 0, k8, m);
+    load4(k, xin, vf, w0, base, f - 2 * s, n, p == 0, k8, c);
+    uint32_t y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = fir(a[i], m[i], c[i], f + i, sh, p == 0);
+    if (f >= L - 2 * s) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wf[f + i - (L - 2 * s)] = (int32_t)a[i];
     }
-    if (TO_PCM) {
-      pcm[base + f] = to_pcm(y, level);
-    } else {
-      xout[base + f] = y;
+    *(uint4*)(xout + base + f) = make_uint4(y[0], y[1], y[2], y[3]);
+  }
+}
+
+// The passes p0 .. level-1 (strides TAIL_STRIDE and below) in one launch,
+// over flat tiles of TL outputs in shared memory. A CTA takes outputs
+// [t0, t0+M) of one file and loads its input x (pass p0's: k * val where
+// p0 == 0) on [t0-H, t0+M), H = 4*s_p0 >= sum_{q>=p0} 2*s_q + 2: the halo
+// every fused pass needs, recomputed by the CTA rather than carried, so
+// each pass is exact without any carry lemma. Pass p writes outputs j >=
+// H - 2*s_p of the tile (index j is position t0 - H + j) into the other
+// buffer, from inputs j - 2*s_p >= H - 4*s_p, which the pass before wrote.
+// The file's first tile (t0 == 0) puts wrap0's segment of pass p at
+// positions [-2s_p, 0) before the pass; its last tile writes the pass's
+// carry (inputs [L-2s_p, L)) to wrapf. The last pass (s = 1) writes PCM,
+// 8 samples a thread, in 16-byte stores. Bound: k or x read and PCM
+// written once; each pass costs three shared-memory loads and a store an
+// element, and the halo costs H/TL more work on the first tail pass.
+__global__ void __launch_bounds__(512)
+synth_tail_kernel(const int16_t* __restrict__ k, const uint32_t* __restrict__ xin,
+                  const int32_t* __restrict__ vals, const int32_t* __restrict__ wrap0,
+                  int16_t* __restrict__ pcm, int32_t* __restrict__ wrapf, int nb,
+                  int level, int rows, int p0, int TL, int vec) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n = rows << level;
+  const int L = nb * n;
+  const int cols = 1 << level, wlen = 2 * cols - 2;
+  const int H = 4 << (level - 1 - p0);
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TL;
+  const int M = min(TL, L - t0);
+  const int E = H + M;
+  const int64_t base = (int64_t)b * L;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int32_t* vf = vals + (int64_t)b * nb;
+  uint32_t* src = smem;
+  uint32_t* dst = smem + H + TL;
+
+  for (int j = 4 * tid; j < E; j += 4 * nt) {  // H, TL and t0 are multiples of 4
+    const int pos = t0 - H + j;
+    uint32_t x[4] = {0u, 0u, 0u, 0u};
+    if (pos >= 0 && p0 == 0) {  // pass 0's input: k * val
+      const int blk = pos / n;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (pos + i < L) {
+          const int bi = blk + (pos + i >= (blk + 1) * n);
+          x[i] = (uint32_t)(int32_t)k[base + pos + i] * (uint32_t)vf[bi];
+        }
+      }
+    } else if (pos >= 0) {  // L % 4 == 0 here (n % 4 == 0 when p0 > 0)
+      const uint4 u = *(const uint4*)(xin + base + pos);
+      x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+    }
+    *(uint4*)(src + j) = make_uint4(x[0], x[1], x[2], x[3]);
+  }
+
+  for (int p = p0; p < level; ++p) {
+    const int sh = level - 1 - p, s = 1 << sh;
+    const int off = 2 * cols - 4 * s;
+    __syncthreads();  // src holds pass p's inputs
+    if (t0 + M == L) {
+      for (int i = tid; i < 2 * s; i += nt)
+        wrapf[(int64_t)b * wlen + off + i] = (int32_t)src[E - 2 * s + i];
+    }
+    if (t0 == 0) {
+      for (int i = tid; i < 2 * s; i += nt)
+        src[H - 2 * s + i] = (uint32_t)wrap0[(int64_t)b * wlen + off + i];
+      __syncthreads();
+    }
+    if (p + 1 < level) {
+      for (int j = H - 2 * s + tid; j < E; j += nt)
+        dst[j] = fir(src[j], src[j - s], src[j - 2 * s], t0 - H + j, sh, p == 0);
+      uint32_t* t = src;
+      src = dst;
+      dst = t;
+      continue;
+    }
+    for (int g = tid; 8 * g < M; g += nt) {  // the last pass: s = 1
+      const int j = H + 8 * g;
+      int16_t o[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[i] = 8 * g + i < M ? to_pcm(fir(src[j + i], src[j + i - 1], src[j + i - 2],
+                                          t0 + 8 * g + i, 0, p == 0), level)
+                             : (int16_t)0;
+      }
+      int16_t* out = pcm + base + t0 + 8 * g;
+      if (vec && 8 * g + 8 <= M) {
+        uint4 u;
+        memcpy(&u, o, 16);
+        *(uint4*)out = u;
+      } else {
+        for (int i = 0; i < 8 && 8 * g + i < M; ++i) out[i] = o[i];
+      }
     }
   }
 }
@@ -634,8 +786,9 @@ int acm_synth_fused(const void* k, const void* vals, const void* wrap0,
   return (int)cudaGetLastError();
 }
 
-// Resident CTAs per SM of a route (0: synth_fused_kernel at this shared
-// memory, 1: synth_pass_kernel), or -cudaError on failure.
+// Resident CTAs per SM of a kernel (0: synth_fused_kernel at this shared
+// memory, 1: synth_pass_kernel, 2: synth_tail_kernel at this shared
+// memory, 3: synth_level0_kernel), or -cudaError on failure.
 int acm_synth_occupancy(int route, int threads, long long smem_bytes) {
   cudaError_t e = cudaSuccess;
   int n = 0;
@@ -645,35 +798,63 @@ int acm_synth_occupancy(int route, int threads, long long smem_bytes) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_fused_kernel, threads,
                                                         (size_t)smem_bytes);
     }
+  } else if (route == 1) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_pass_kernel, threads, 0);
+  } else if (route == 2) {
+    e = cudaFuncSetAttribute(synth_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_tail_kernel, threads,
+                                                        (size_t)smem_bytes);
+    }
   } else {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, synth_pass_kernel<true, true>, threads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_level0_kernel<8>, threads,
+                                                      0);
   }
   return e == cudaSuccess ? n : -(int)e;
 }
 
-int acm_synth_pass(const void* k, const void* xin, const void* vals,
-                   const void* wrap0, void* xout, void* pcm, void* wrapf,
-                   int B, int nb, int level, int rows, int p, int off,
-                   int from_k, int to_pcm, int grid_x, void* stream) {
-  dim3 grid(grid_x, B);
+// Level 0 over nblk = B*nb blocks of n samples, VEC samples a thread, CTAs
+// of (tx, ty) threads on a grid of (gx, gy).
+int acm_synth_level0(const void* k, const void* vals, void* pcm, long long nblk, int n,
+                     int vec, int tx, int ty, int gx, int gy, void* stream) {
+  const dim3 grid(gx, gy), block(tx, ty);
   const int16_t* kk = (const int16_t*)k;
-  const uint32_t* xi = (const uint32_t*)xin;
   const int32_t* v = (const int32_t*)vals;
-  const int32_t* w0 = (const int32_t*)wrap0;
-  uint32_t* xo = (uint32_t*)xout;
   int16_t* pc = (int16_t*)pcm;
-  int32_t* wf = (int32_t*)wrapf;
   cudaStream_t st = (cudaStream_t)stream;
-  if (from_k && to_pcm) {
-    synth_pass_kernel<true, true><<<grid, 256, 0, st>>>(kk, xi, v, w0, xo, pc, wf, nb, level, rows, p, off);
-  } else if (from_k) {
-    synth_pass_kernel<true, false><<<grid, 256, 0, st>>>(kk, xi, v, w0, xo, pc, wf, nb, level, rows, p, off);
-  } else if (to_pcm) {
-    synth_pass_kernel<false, true><<<grid, 256, 0, st>>>(kk, xi, v, w0, xo, pc, wf, nb, level, rows, p, off);
-  } else {
-    synth_pass_kernel<false, false><<<grid, 256, 0, st>>>(kk, xi, v, w0, xo, pc, wf, nb, level, rows, p, off);
+  switch (vec) {
+    case 8: synth_level0_kernel<8><<<grid, block, 0, st>>>(kk, v, pc, nblk, n); break;
+    case 4: synth_level0_kernel<4><<<grid, block, 0, st>>>(kk, v, pc, nblk, n); break;
+    case 2: synth_level0_kernel<2><<<grid, block, 0, st>>>(kk, v, pc, nblk, n); break;
+    case 1: synth_level0_kernel<1><<<grid, block, 0, st>>>(kk, v, pc, nblk, n); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// One wide pass p over B files (xin unused for p == 0, which reads k).
+int acm_synth_pass(const void* k, const void* xin, const void* vals,
+                   const void* wrap0, void* xout, void* wrapf, int B, int nb,
+                   int level, int rows, int p, int k8, int grid_x, int threads,
+                   void* stream) {
+  synth_pass_kernel<<<dim3(grid_x, B), threads, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)k, (const uint32_t*)xin, (const int32_t*)vals,
+      (const int32_t*)wrap0, (uint32_t*)xout, (int32_t*)wrapf, nb, level, rows, p, k8);
+  return (int)cudaGetLastError();
+}
+
+// The passes p0 .. level-1 over tiles of TL outputs, grid (ceil(L/TL), B).
+int acm_synth_tail(const void* k, const void* xin, const void* vals,
+                   const void* wrap0, void* pcm, void* wrapf, int B, int nb,
+                   int level, int rows, int p0, int TL, int vec, int grid_x,
+                   int threads, long long smem_bytes, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      synth_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  synth_tail_kernel<<<dim3(grid_x, B), threads, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+      (const int16_t*)k, (const uint32_t*)xin, (const int32_t*)vals,
+      (const int32_t*)wrap0, (int16_t*)pcm, (int32_t*)wrapf, nb, level, rows, p0, TL, vec);
   return (int)cudaGetLastError();
 }
 

@@ -67,11 +67,21 @@ ONE_CTA_SMEM = SM_SMEM - CTA_RESERVED
 #: threads per fused CTA: a power of two (the kernel sizes strips by
 #: shifts), at most the kernel's __launch_bounds__
 _FUSED_THREADS = 256
+_LEVEL0_THREADS = 256
 _PASS_THREADS = 256
+_TAIL_THREADS = 512
 _MAX_GRID_X = 65535
+#: the widest pass stride the tail kernel takes in shared memory; the
+#: passes wider than this are flat launches of synth_pass_kernel
+TAIL_STRIDE = 1024
+#: outputs per tail CTA: at least the halo, 4 * TAIL_STRIDE; the halo adds
+#: at most half a tile to the first tail pass, and two buffers of tile and
+#: halo (96 KB) leave room for two CTAs per SM
+TAIL_TILE = 8192
 
-#: kernel launches per route since the last reset_launches()
-launches = {"synth_fused": 0, "synth_pass": 0}
+#: launches per kernel since the last reset_launches()
+launches = {"synth_fused": 0, "synth_level0": 0, "synth_pass": 0,
+            "synth_tail": 0}
 
 _lib = None
 _LOCK = threading.Lock()
@@ -151,11 +161,22 @@ def _load():
             ]
             lib.acm_synth_occupancy.restype = ci
             lib.acm_synth_occupancy.argtypes = [ci, ci, ctypes.c_longlong]
+            lib.acm_synth_level0.restype = ci
+            lib.acm_synth_level0.argtypes = [
+                vp, vp, vp, ctypes.c_longlong, ci,  # k, vals, pcm, nblk, n
+                ci, ci, ci, ci, ci, vp,  # vec, tx, ty, gx, gy, stream
+            ]
             lib.acm_synth_pass.restype = ci
             lib.acm_synth_pass.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp,  # k, xin, vals, wrap0, xout, pcm, wrapf
-                ci, ci, ci, ci, ci, ci,  # B, nb, level, rows, p, off
-                ci, ci, ci, vp,  # from_k, to_pcm, grid_x, stream
+                vp, vp, vp, vp, vp, vp,  # k, xin, vals, wrap0, xout, wrapf
+                ci, ci, ci, ci, ci, ci,  # B, nb, level, rows, p, k8
+                ci, ci, vp,  # grid_x, threads, stream
+            ]
+            lib.acm_synth_tail.restype = ci
+            lib.acm_synth_tail.argtypes = [
+                vp, vp, vp, vp, vp, vp,  # k, xin, vals, wrap0, pcm, wrapf
+                ci, ci, ci, ci, ci, ci, ci,  # B, nb, level, rows, p0, TL, vec
+                ci, ci, ctypes.c_longlong, vp,  # grid_x, threads, smem, stream
             ]
             _lib = lib
     return _lib
@@ -219,23 +240,72 @@ def fused_plan(level: int, rows: int, B: int, nb: int,
     return min(T, span + synth_torch.warmup_blocks(level, rows)), span
 
 
+def level0_plan(n: int, k_addr: int, pcm_addr: int) -> tuple[int, int, int]:
+    """(vec, tx, ty) of a level-0 launch over blocks of n samples: vec
+    samples a thread, the widest of 8, 4, 2, 1 that divides n and keeps
+    every vector of k and of PCM aligned to 2*vec bytes (one 16-, 8-, 4- or
+    2-byte access each); CTAs of tx vectors of a block by ty blocks, at
+    most _LEVEL0_THREADS threads."""
+    vec = next(v for v in (8, 4, 2, 1) if n % v == 0
+               and k_addr % (2 * v) == 0 and pcm_addr % (2 * v) == 0)
+    tx = min(n // vec, _LEVEL0_THREADS)
+    return vec, tx, max(1, _LEVEL0_THREADS // tx)
+
+
+def tail_pass(level: int) -> int:
+    """Where one block fits no CTA: the first pass of the tail launch,
+    the first whose stride is at most TAIL_STRIDE. The passes before it
+    are flat launches (pass 0 dequantizes k)."""
+    return max(0, level - TAIL_STRIDE.bit_length())
+
+
+def tail_halo(level: int) -> int:
+    """Inputs a tail tile loads before its outputs: 4 * s_p0 >= sum of
+    2*s over the tail's passes, + 2."""
+    return 4 * ((1 << level) >> (tail_pass(level) + 1))
+
+
+def tail_smem_bytes(level: int) -> int:
+    """Shared memory of one tail CTA: two int32 buffers of halo + tile."""
+    return 2 * 4 * (tail_halo(level) + TAIL_TILE)
+
+
+def kernel_launches(level: int, rows: int, nb: int) -> dict[str, int]:
+    """The launches one call of synth_pcm_batch makes on [B, nb] blocks
+    of this geometry (nb > 0), by kernel."""
+    if level == 0:
+        return {"synth_level0": 1}
+    if fused_tile(level, rows, nb):
+        return {"synth_fused": 1}
+    p0 = tail_pass(level)
+    return ({"synth_pass": p0} if p0 else {}) | {"synth_tail": 1}
+
+
+def route(level: int, rows: int, nb: int) -> str:
+    """The kernels a geometry's call launches, joined by '+'."""
+    return "+".join(kernel_launches(level, rows, nb))
+
+
 _occupancy: dict[tuple[int, str, int], int] = {}
+#: the occupancy query's kernel index and threads per CTA of each kernel
+_KERNELS = {"synth_fused": (0, _FUSED_THREADS),
+            "synth_pass": (1, _PASS_THREADS),
+            "synth_tail": (2, _TAIL_THREADS),
+            "synth_level0": (3, _LEVEL0_THREADS)}
 
 
-def ctas_per_sm(route: str, smem_bytes: int, device: torch.device) -> int:
-    """Resident CTAs per SM of a route ("synth_fused" at this dynamic
-    shared memory, or "synth_pass"), as the CUDA runtime reports it
+def ctas_per_sm(kernel: str, smem_bytes: int, device: torch.device) -> int:
+    """Resident CTAs per SM of a kernel (a key of `launches`) at this
+    dynamic shared memory, as the CUDA runtime reports it
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    key = (device.index or 0, route, smem_bytes)
+    key = (device.index or 0, kernel, smem_bytes)
     if key not in _occupancy:
         lib = _load()
-        fused = route == "synth_fused"
+        index, threads = _KERNELS[kernel]
         with torch.cuda.device(device):
-            n = lib.acm_synth_occupancy(
-                0 if fused else 1,
-                _FUSED_THREADS if fused else _PASS_THREADS, smem_bytes)
+            n = lib.acm_synth_occupancy(index, threads, smem_bytes)
         if n <= 0:
-            raise RuntimeError(f"occupancy query for {route} failed: "
+            raise RuntimeError(f"occupancy query for {kernel} failed: "
                                f"cudaError {-n}")
         _occupancy[key] = n
     return _occupancy[key]
@@ -312,6 +382,16 @@ def synth_pcm_batch(
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if level == 0:
+            vec, tx, ty = level0_plan(n, k.data_ptr(), pcm.data_ptr())
+            rc = lib.acm_synth_level0(
+                k.data_ptr(), vals.data_ptr(), pcm.data_ptr(), B * nb, n, vec,
+                tx, ty, -(-(B * nb) // ty), -(-(n // vec) // tx), stream)
+            if rc:
+                raise RuntimeError(f"synth_level0_kernel launch failed: "
+                                   f"cudaError {rc}")
+            _count("synth_level0")
+            return pcm, wrapf
         cfg = fused_config(level, rows, B, nb, dev)
         if cfg:
             rc = lib.acm_synth_fused(
@@ -324,25 +404,34 @@ def synth_pcm_batch(
                                    f"cudaError {rc}")
             _count("synth_fused")
             return pcm, wrapf
+        # a block fits no CTA: the wide passes flat, then the tail in tiles
         L = nb * n
-        grid_x = min(-(-L // _PASS_THREADS), _MAX_GRID_X)
+        p0 = tail_pass(level)
         bufs = [torch.empty((B, L), dtype=torch.int32, device=dev)
-                for _ in range(min(2, max(level - 1, 0)))]
+                for _ in range(min(2, p0))]
         src = None
-        off = 0
-        for p in range(max(level, 1)):
-            to_pcm = p == max(level, 1) - 1
-            dst = None if to_pcm else bufs[p % 2]
+        for p in range(p0):
+            dst = bufs[p % 2]
             rc = lib.acm_synth_pass(
                 k.data_ptr(), src.data_ptr() if src is not None else None,
-                vals.data_ptr(), wrap0.data_ptr(),
-                dst.data_ptr() if dst is not None else None,
-                pcm.data_ptr(), wrapf.data_ptr(), B, nb, level, rows, p, off,
-                int(p == 0), int(to_pcm), grid_x, stream)
+                vals.data_ptr(), wrap0.data_ptr(), dst.data_ptr(),
+                wrapf.data_ptr(), B, nb, level, rows, p,
+                int(k.data_ptr() % 8 == 0),
+                min(-(-L // (4 * _PASS_THREADS)), _MAX_GRID_X), _PASS_THREADS,
+                stream)
             if rc:
                 raise RuntimeError(f"synth_pass_kernel launch failed (pass "
                                    f"{p}): cudaError {rc}")
             _count("synth_pass")
             src = dst
-            off += 2 * (cols >> (p + 1))
+        rc = lib.acm_synth_tail(
+            k.data_ptr(), src.data_ptr() if src is not None else None,
+            vals.data_ptr(), wrap0.data_ptr(), pcm.data_ptr(),
+            wrapf.data_ptr(), B, nb, level, rows, p0, TAIL_TILE,
+            int(pcm.data_ptr() % 16 == 0 and L % 8 == 0), -(-L // TAIL_TILE),
+            _TAIL_THREADS, tail_smem_bytes(level), stream)
+        if rc:
+            raise RuntimeError(f"synth_tail_kernel launch failed: cudaError "
+                               f"{rc}")
+        _count("synth_tail")
     return pcm, wrapf

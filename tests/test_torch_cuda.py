@@ -51,8 +51,8 @@ def _inputs(dev, level, rows, B, nb, k_offset=0):
     (7, 16, 3, 41, "synth_fused"), (4, 40, 2, 37, "synth_fused"),
     (10, 4, 2, 9, "synth_fused"), (5, 33, 2, 5, "synth_fused"),
     (9, 3, 2, 6, "synth_fused"), (1, 2, 2, 11, "synth_fused"),
-    (0, 2048, 2, 5, "synth_pass"), (10, 1, 2, 6, "synth_fused"),
-    (14, 1, 1, 4, "synth_pass"), (15, 16, 1, 3, "synth_pass"),
+    (0, 2048, 2, 5, "synth_level0"), (10, 1, 2, 6, "synth_fused"),
+    (14, 1, 1, 4, "synth_tail"), (15, 16, 1, 3, "synth_tail"),
     (2, 1, 3, 7, "synth_fused"),
     # rows == 1 on the fused route (two warm-up blocks from level 2): levels
     # 1, 7, 12, and spans of one block, so that spans start at block 1
@@ -62,6 +62,12 @@ def _inputs(dev, level, rows, B, nb, k_offset=0):
     (13, 2, 1, 4, "synth_fused"), (12, 4, 2, 3, "synth_fused"),
     (10, 16, 2, 8, "synth_fused"), (12, 3, 1, 7, "synth_fused"),
     (11, 8, 1, 3, "synth_fused"), (13, 1, 2, 5, "synth_fused"),
+    # level 0 at other widths; blocks over 227 KB: the tail alone (reading
+    # k), one and two wide passes before it, several files
+    (0, 256, 3, 20, "synth_level0"), (0, 50, 2, 9, "synth_level0"),
+    (0, 3, 2, 11, "synth_level0"), (11, 16, 2, 2, "synth_tail"),
+    (12, 9, 2, 2, "synth_tail"), (13, 3, 3, 2, "synth_tail"),
+    (14, 2, 2, 3, "synth_tail"),
     # fused edges: many files; nb below one tile; n % 8 != 0 (copies of
     # k narrower than 16 bytes); spans of several tiles cut mid-file; a
     # tile of one block
@@ -77,6 +83,8 @@ def test_kernel_matches_plain(level, rows, B, nb, route):
     got_pcm, got_w = sc.synth_pcm_batch(k, v, w, level=level, rows=rows)
     torch.cuda.synchronize()
     assert sc.launches[route] >= 1
+    assert {n: c for n, c in sc.launches.items() if c} == sc.kernel_launches(
+        level, rows, nb)
     want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=level, rows=rows)
     assert torch.equal(got_pcm, want_pcm)
     if level:
@@ -128,6 +136,25 @@ def test_fused_kernel_unaligned_k(k_offset):
     want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=7, rows=16)
     assert torch.equal(got_pcm, want_pcm)
     assert torch.equal(got_w, want_w)
+
+
+@pytest.mark.parametrize("level,rows,nb", [(0, 2048, 7), (0, 250, 5),
+                                           (14, 1, 3), (11, 16, 2)])
+@pytest.mark.parametrize("k_offset", [1, 2, 4])
+def test_level0_and_large_blocks_unaligned_k(level, rows, nb, k_offset):
+    """k 2, 4 or 8 bytes past 16-byte alignment: level 0 takes narrower
+    vectors, the first wide pass scalar loads of k; bit-equal."""
+    dev = _card()
+    k, v, w = _inputs(dev, level, rows, 2, nb, k_offset=k_offset)
+    sc.reset_launches()
+    got_pcm, got_w = sc.synth_pcm_batch(k, v, w, level=level, rows=rows)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in sc.launches.items() if c} == sc.kernel_launches(
+        level, rows, nb)
+    want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=level, rows=rows)
+    assert torch.equal(got_pcm, want_pcm)
+    if level:
+        assert torch.equal(got_w, want_w)
 
 
 def test_fused_config_two_ctas_per_sm():
@@ -245,8 +272,8 @@ def test_read_segment_on_card_matches_host(level, rows, nb):
 
 
 def test_decode_scan_result_level0_zero_width_carry():
-    """Level 0: the carry has no words; the per-pass kernel takes a
-    [1, 0] wrap0 and the words equal the host synth."""
+    """Level 0: the carry has no words; the level-0 kernel takes a
+    [1, 0] wrap0 in one launch and the words equal the host synth."""
     from libacm_tpu_torch import testing
     from libacm_tpu_torch.scan import native
 
@@ -257,7 +284,8 @@ def test_decode_scan_result_level0_zero_width_carry():
     assert scan.header.wrapbuf_len == 0
     sc.reset_launches()
     got = st.decode_scan_result(scan, device="cuda")
-    assert sc.launches["synth_pass"] == 1
+    assert sc.launches["synth_level0"] == 1
+    assert sum(sc.launches.values()) == 1
     np.testing.assert_array_equal(got, st.decode_scan_result(scan,
                                                              backend="host"))
 

@@ -405,4 +405,163 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
     want = st.synth_pcm_batch(torch.from_numpy(k), torch.from_numpy(v),
                               torch.from_numpy(w), level=7, rows=16)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert sc.launches == {"synth_fused": 0, "synth_pass": 0}
+    assert not any(sc.launches.values())
+
+
+# --- models of the level-0 and large-block kernels (csrc/synth.cu) ---------
+
+
+def _level0_model(k, vals, *, k_addr, pcm_addr):
+    """synth_level0_kernel's grid in torch: level0_plan's (vec, tx, ty),
+    thread (x, y) of CTA (bx, by) converting vector bx*tx... of block
+    by*ty + y with that block's val. Every sample must be written once."""
+    B, nb, rows, _ = k.shape
+    n = rows
+    vec, tx, ty = sc.level0_plan(n, k_addr, pcm_addr)
+    assert n % vec == 0 and k_addr % (2 * vec) == 0 and tx * ty <= 256
+    nblk = B * nb
+    gx, gy = -(-nblk // ty), -(-(n // vec) // tx)
+    kk = k.reshape(nblk, n).to(torch.int64)
+    vv = vals.reshape(nblk).to(torch.int64)
+    out = torch.zeros((nblk, n), dtype=torch.int64)
+    hits = torch.zeros((nblk, n), dtype=torch.int64)
+    blk = (torch.arange(gx)[:, None] * ty + torch.arange(ty)[None]).reshape(-1)
+    v = (torch.arange(gy)[:, None] * tx + torch.arange(tx)[None]).reshape(-1)
+    blk, v = blk[blk < nblk], v[v < n // vec]
+    for i in range(vec):
+        e = v * vec + i
+        out[blk[:, None], e[None]] = kk[blk[:, None], e[None]] * vv[blk, None]
+        hits[blk[:, None], e[None]] += 1
+    assert bool((hits == 1).all())
+    return _to_pcm(out & _M32, 0).reshape(B, nb, n)
+
+
+@pytest.mark.parametrize("rows,nb,k_addr", [
+    (2048, 5, 0), (2048, 3, 2), (2048, 2, 4), (2048, 1, 8), (256, 7, 0),
+    (50, 9, 0), (3, 11, 0), (64, 40, 6), (1000, 2, 16)])
+def test_level0_model_matches_plain(rows, nb, k_addr):
+    """Vector widths 8, 4, 2, 1 by n and k's alignment, CTAs of several
+    blocks where a block has fewer than 256 vectors."""
+    k, v, w = _inputs(0, rows, 2, nb, seed=rows + nb)
+    k, v, w = torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(w)
+    want, _ = st.synth_pcm_batch(k, v, w, level=0, rows=rows)
+    got = _level0_model(k, v, k_addr=k_addr, pcm_addr=0)
+    assert torch.equal(want, got)
+
+
+def _fir_vec(a, m, c, pos, sh, bias):
+    t = (a + c) & _M32
+    y = torch.where(((pos >> sh) & 1) == 0, t + 2 * m, 2 * m - t) & _M32
+    if bias:
+        y = (y + ((pos & ((1 << sh) - 1)) == 0).to(torch.int64)) & _M32
+    return y
+
+
+def _large_model(k, vals, wrap0, *, level, rows, seed=0):
+    """The route of blocks that fit no CTA, in torch: tail_pass(level)
+    wide passes over each file's flat stream (4 outputs a thread, one val
+    a vector), then synth_tail_kernel's tiles: TAIL_TILE outputs, a halo
+    of tail_halo(level) inputs recomputed through every tail pass, wrap0
+    put before the file's first tile for each pass, each pass's carry
+    taken from the file's last tile, the buffers holding stale values
+    (random here) outside what each pass writes."""
+    B, nb = k.shape[:2]
+    cols = 1 << level
+    n, wlen = rows * cols, 2 * cols - 2
+    L = nb * n
+    TL, H, p0 = sc.TAIL_TILE, sc.tail_halo(level), sc.tail_pass(level)
+    assert H <= TL and H % 4 == 0 and TL % 8 == 0
+    kk = k.to(torch.int64).reshape(B, L)
+    vv = vals.to(torch.int64)
+    w0 = wrap0.to(torch.int64) & _M32
+    wrapf = torch.zeros((B, wlen), dtype=torch.int64)
+    pcm = torch.empty((B, L), dtype=torch.int16)
+    rng = torch.Generator().manual_seed(seed)
+    x = None
+    for p in range(p0):  # wide passes: s % 4 == 0, n % 4 == 0
+        sh = level - 1 - p
+        s, off = 1 << sh, 2 * cols - 4 * (1 << sh)
+        f = torch.arange(L)
+        if p == 0:
+            vec_blk = (f // 4 * 4) // n  # one val per vector of 4
+            inp = (kk * vv[:, vec_blk]) & _M32
+        else:
+            inp = x
+        ext = torch.cat([w0[:, off : off + 2 * s], inp], dim=1)
+        x = _fir_vec(ext[:, 2 * s :], ext[:, s:-s], ext[:, : -2 * s], f, sh,
+                     p == 0)
+        wrapf[:, off : off + 2 * s] = inp[:, L - 2 * s :]
+    for b in range(B):
+        for t0 in range(0, L, TL):
+            M = min(TL, L - t0)
+            E = H + M
+            bufs = [torch.randint(0, 1 << 32, (H + TL,), generator=rng,
+                                  dtype=torch.int64) for _ in range(2)]
+            src, dst = bufs
+            pos = t0 - H + torch.arange(E)
+            ok = pos >= 0
+            src[:E] = 0
+            if p0 == 0:
+                src[:E][ok] = (kk[b, pos[ok]] * vv[b, pos[ok] // n]) & _M32
+            else:
+                src[:E][ok] = x[b, pos[ok]]
+            for p in range(p0, level):
+                sh = level - 1 - p
+                s, off = 1 << sh, 2 * cols - 4 * (1 << sh)
+                if t0 + M == L:
+                    wrapf[b, off : off + 2 * s] = src[E - 2 * s : E]
+                if t0 == 0:
+                    src[H - 2 * s : H] = w0[b, off : off + 2 * s]
+                j = torch.arange(H - 2 * s if p + 1 < level else H, E)
+                y = _fir_vec(src[j], src[j - s], src[j - 2 * s], t0 - H + j,
+                             sh, p == 0)
+                if p + 1 < level:
+                    dst[j] = y
+                    src, dst = dst, src
+                else:
+                    pcm[b, t0 : t0 + M] = _to_pcm(y, level)
+    wrapf = torch.where(wrapf >= 1 << 31, wrapf - (1 << 32), wrapf)
+    return pcm.reshape(B, nb, n), wrapf.to(torch.int32)
+
+
+@pytest.mark.parametrize("level,rows,B,nb,stride,tile", [
+    (6, 3, 2, 5, 4, 32),  # three wide passes, tiles cut mid-block
+    (4, 3, 2, 3, 4, 32),  # L % TL != 0: a short last tile
+    (3, 5, 2, 3, 4, 16),  # no wide pass: the tail reads k (p0 == 0)
+    (1, 5, 2, 3, 4, 8),  # level 1: n % 4 == 2, the tail's only pass is 0
+    (7, 1, 1, 6, 8, 32), (5, 2, 3, 2, 2, 8),  # rows == 1; H == TL
+    (14, 1, 1, 2, None, None), (11, 16, 1, 1, None, None),  # real sizes
+    (15, 16, 1, 1, None, None), (12, 9, 2, 1, None, None),
+])
+def test_large_block_model_matches_plain(monkeypatch, level, rows, B, nb,
+                                         stride, tile):
+    """The wide passes and the tail's tiles with a recomputed halo, held
+    to the plain version: at the kernel's constants on blocks over 227 KB,
+    and with a smaller tail stride and tile on small blocks (the same
+    index math)."""
+    if stride:
+        monkeypatch.setattr(sc, "TAIL_STRIDE", stride)
+        monkeypatch.setattr(sc, "TAIL_TILE", tile)
+    else:
+        assert sc.route(level, rows, nb).endswith("synth_tail")
+    k, v, w = _inputs(level, rows, B, nb, seed=level * 5 + rows)
+    k, v, w = torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(w)
+    want_pcm, want_w = st.synth_pcm_batch(k, v, w, level=level, rows=rows)
+    got_pcm, got_w = _large_model(k, v, w, level=level, rows=rows)
+    assert torch.equal(want_pcm, got_pcm)
+    assert torch.equal(want_w, got_w)
+
+
+@pytest.mark.parametrize("level,rows,nb,launches", [
+    (0, 2048, 416, {"synth_level0": 1}), (7, 1, 4800, {"synth_fused": 1}),
+    (13, 2, 4, {"synth_fused": 1}), (11, 16, 2, {"synth_tail": 1}),
+    (14, 1, 4, {"synth_pass": 3, "synth_tail": 1}),
+    (15, 16, 3, {"synth_pass": 4, "synth_tail": 1}),
+])
+def test_kernel_launches_by_geometry(level, rows, nb, launches):
+    """Level 0 and every block that fits a CTA: one launch; larger
+    blocks: one flat launch per pass wider than TAIL_STRIDE, one tail."""
+    assert sc.kernel_launches(level, rows, nb) == launches
+    assert sc.route(level, rows, nb) == "+".join(launches)
+    assert sc.tail_halo(15) <= sc.TAIL_TILE
+    assert 2 * (sc.tail_smem_bytes(15) + sc.CTA_RESERVED) <= sc.SM_SMEM

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""On-card parity sweep of the CUDA synthesis kernel: every level, both
-routes, with a zero and a non-zero carry-in, bit equality required.
+"""On-card parity sweep of the CUDA synthesis kernel: every level, every
+route, with a zero and a non-zero carry-in, bit equality required.
 
     python3 tools/torch_parity_sweep.py [--deadline-s=S] [LEVEL ...]
 
 In the manner of tools/pallas_parity_sweep.py. For each level (default
 0-15) the kernel wrapper runs on small batches on the card — rows near the
-classic 2048-word block (the fused route where a tile fits), rows == 1 (the
-per-pass route), and a split pair of launches whose second takes the
+classic 2048-word block and rows == 1 (the fused route where a block
+fits a CTA, level 0's kernel, and the wide passes and tail of blocks
+over 227 KB from level 13), and a split pair of launches whose second takes the
 first's final carry on the device — and PCM and final carry are held
 bit-equal to the plain torch version on the same tensors. The CPU tests
 cover the plain version and a model of the kernel's schedule only; this
@@ -31,7 +32,7 @@ import time
 
 import numpy as np
 
-#: lines per level: two row shapes (fused / per-pass) x two carries
+#: lines per level: two row shapes x two carries
 CASES_PER_LEVEL = 4
 
 
@@ -75,8 +76,7 @@ def main(argv) -> int:
                 1, 3000, (B, nb)).astype(np.int32)).to(dev)
             carry = torch.from_numpy(rng.integers(
                 -10000, 10000, (B, 2 * cols - 2)).astype(np.int32)).to(dev)
-            route = ("synth_fused" if synth_cuda.fused_tile(level, rows, nb)
-                     else "synth_pass")
+            route = synth_cuda.route(level, rows, nb)
             routes.add(route)
             for what, wrap0 in (("zero carry", torch.zeros_like(carry)),
                                 ("non-zero carry", carry)):
@@ -98,7 +98,7 @@ def main(argv) -> int:
                       and torch.equal(torch.cat([a[0], b[0]], dim=1),
                                       want[0])
                       and torch.equal(b[1], want[1]))
-                print(f"level {level:2d} rows {rows:4d} {route:11s} "
+                print(f"level {level:2d} rows {rows:4d} {route:21s} "
                       f"{what:14s}: {'OK' if ok else 'MISMATCH'}",
                       flush=True)
                 cases += 1

@@ -35,7 +35,7 @@ SHAPES = [(7, 16, 25, 320), (4, 40, 15, 1216), (10, 4, 10, 160),
           (7, 1, 1, 4800), (0, 2048, 1, 400), (0, 2048, 2, 416),
           (0, 2048, 3, 416),
           (13, 2, 1, 4), (12, 4, 1, 4), (10, 16, 2, 8), (14, 1, 1, 4),
-          (15, 16, 1, 3)]
+          (15, 16, 1, 3), (13, 2, 1, 264), (10, 16, 4, 64), (15, 16, 2, 16)]
 
 
 def main() -> int:

@@ -60,7 +60,7 @@ def phases(sc, dev, inputs) -> list[dict]:
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.acm_synth_fused.restype = ci
-    lib.acm_synth_fused.argtypes = [vp] * 5 + [ci] * 7 + [ctypes.c_longlong,
+    lib.acm_synth_fused.argtypes = [vp] * 5 + [ci] * 8 + [ctypes.c_longlong,
                                                            vp]
     lib.acm_synth_prof_take.restype = ci
     lib.acm_synth_prof_take.argtypes = [vp]
@@ -80,6 +80,8 @@ def phases(sc, dev, inputs) -> list[dict]:
                                      w.data_ptr(), pcm.data_ptr(),
                                      wf.data_ptr(), B, nb, level, rows,
                                      cfg["T"], cfg["span"],
+                                     sc.synth_torch.warmup_blocks(level,
+                                                                  rows),
                                      sc._FUSED_THREADS, cfg["smem_bytes"],
                                      stream)
             if rc:
@@ -156,8 +158,10 @@ def main() -> int:
         def run():
             rc = lib.acm_synth_fused(k.data_ptr(), v.data_ptr(), w.data_ptr(),
                                      pcm.data_ptr(), wf.data_ptr(), B, nb,
-                                     level, rows, T, span, threads, smem,
-                                     stream)
+                                     level, rows, T, span,
+                                     sc.synth_torch.warmup_blocks(level,
+                                                                  rows),
+                                     threads, smem, stream)
             if rc:
                 raise RuntimeError(f"launch failed: cudaError {rc}")
 
