@@ -33,10 +33,13 @@ third:
 - reference: the C reference's `acmtool -d -n -q` where it can be had
            (ensure_reference), else vs_baseline is null;
 - h2d:     one pageable host-to-device copy rate (8 MiB, fresh content);
-- kernel rows: the CUDA synthesis kernel at each geometry of the corpus at
-           the main path's shapes and at the stream window's, by CUDA
-           events, beside its bound (bound), its plain torch version and
-           its launches per path; device_compute_Msamples_per_s is their
+- kernel rows: the CUDA synthesis kernels at each geometry of the corpus
+           at the main path's shapes, at the stream window's, and at
+           EXTRA_KERNEL_SHAPES (the shapes the other paths give the level-0
+           and rows == 1 routes, and blocks that fit one CTA per SM or no
+           CTA), by CUDA events with the L2 cache warm and flushed, beside
+           the bound (bound), the plain torch version and the launches on
+           the path; device_compute_Msamples_per_s is the corpus rows'
            harmonic mean weighted by each geometry's share of the corpus.
 
 Correctness rides along: every device round's checksum() equals the first,
@@ -116,6 +119,20 @@ STREAM_WINDOWS = (2048, 3000)
 #: random-access windows at scale 1, of 1..SEGMENT_FRAMES frames each
 N_SEGMENTS = 1000
 SEGMENT_FRAMES = 50_000
+
+#: kernel rows beyond the corpus chunks and the stream window: (what, the
+#: bench path that gives the shape or None, level, rows, B, nb)
+EXTRA_KERNEL_SHAPES = [
+    ("whole-file stream", "stream_whole", 0, 2048, 1, 400),
+    ("whole-file stream, rows == 1", None, 7, 1, 1, 4800),
+    ("stream window, rows == 1", None, 7, 1, 1, 512),
+    ("stream window, level 0", None, 0, 2048, 1, 64),
+    ("dense route", None, 0, 2048, 2, 416),
+    ("sharded corpus", None, 0, 2048, 3, 416),
+    ("one CTA per SM", None, 13, 2, 1, 4),
+    ("blocks over 227 KB", None, 14, 1, 1, 4),
+    ("blocks over 227 KB", None, 15, 16, 1, 3),
+]
 
 #: case lines tools/torch_parity_sweep.py prints for each level
 SWEEP_CASES_PER_LEVEL = 4
@@ -245,7 +262,8 @@ def bound(level: int, rows: int, B: int, nb: int) -> tuple[float, str]:
 def time_ms(torch, fn, reps: int) -> float:
     """Device time per call: CUDA events around `reps` calls queued behind
     a sleeping kernel, so that the card runs them back to back and the
-    host's time to launch them is not counted."""
+    host's time to launch them is not counted. Inputs of up to 50 MB stay
+    in the L2 cache from one call to the next."""
     fn()
     fn()
     torch.cuda.synchronize()
@@ -258,6 +276,25 @@ def time_ms(torch, fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def time_ms_cold(torch, fn, reps: int) -> float:
+    """Device time per call with the L2 cache flushed before each: a
+    write of 64 MiB, then CUDA events around the call alone, all queued
+    behind a sleeping kernel."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for a, b in ev:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / reps
 
 
 def random_inputs(torch, dev, level, rows, B, nb, seed):
@@ -281,8 +318,16 @@ def max_err(torch, got, want, level) -> int:
 
 
 def kernel_route(synth_cuda, level: int, rows: int, nb: int) -> str:
-    return "synth_fused" if synth_cuda.fused_tile(level, rows, nb) \
-        else "synth_pass"
+    """The kernels one call launches at this geometry, joined by '+'."""
+    return synth_cuda.route(level, rows, nb)
+
+
+def route_launches(synth_cuda, launches: dict, level: int, rows: int,
+                   nb: int) -> int:
+    """Launches of a geometry's route (all its kernels) in a counter
+    dict."""
+    return sum(launches[k] for k in synth_cuda.kernel_launches(level, rows,
+                                                                 nb))
 
 
 # -- the C reference ----------------------------------------------------------
@@ -569,8 +614,9 @@ def device_identity(torch, dev) -> dict:
 def kernel_rows(torch, dev, shapes, launches, card: str) -> list[dict]:
     """One row per (what, path, level, rows, B, nb) of `shapes`: the
     kernel held to its plain version (tolerance 0), its time by CUDA
-    events over 20 launches, the plain version's, the bound and the share
-    of it, and its route's launches on the path that gives it the shape."""
+    events over 20 launches (L2 warm, and flushed before each), the plain
+    version's, the bound and the share of it, and its route's launches on
+    the path that gives it the shape (path None: those of one call)."""
     from libacm_tpu_torch.ops import synth_cuda, synth_torch
 
     rows_out = []
@@ -588,24 +634,31 @@ def kernel_rows(torch, dev, shapes, launches, card: str) -> list[dict]:
         del got, want
         ms = time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=20)
+        cold_ms = time_ms_cold(torch, lambda: synth_cuda.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=20)
         plain_ms = time_ms(torch, lambda: synth_torch.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=5)
         bms, by = bound(level, rows, B, nb)
         samples = B * nb * (rows << level)
+        n_launch = route_launches(
+            synth_cuda, launches[path] if path in launches
+            else synth_cuda.kernel_launches(level, rows, nb), level, rows, nb)
         rows_out.append({
             "name": f"{route} ({what}, {level}/{rows} [{B}, {nb}])",
             "route": "cuda", "source": "libacm_tpu_torch/csrc/synth.cu",
             "replaces": "libacm_tpu/ops/synth_pallas.py:72",
-            "path": path, "launches": launches[path][route],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "path": path if path in launches else "one call",
+            "launches": n_launch,
+            "max_abs_err": err, "ms": ms, "cold_l2_ms": cold_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
             "library_ms": None,
             "Msamples_per_s": samples / ms / 1e3,
             "level": level, "rows": rows, "B": B, "nb": nb,
         })
-        log(f"  kernel {level}/{rows} [{B}, {nb}] {route}: {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"{bms / ms:.1%} of bound {card}")
+        log(f"  kernel {level}/{rows} [{B}, {nb}] {route}: {ms:.4f} ms "
+            f"({cold_ms:.4f} with L2 flushed), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), {bms / ms:.1%} of bound {card}")
         del k, v, w
     return rows_out
 
@@ -948,6 +1001,7 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
         if f"stream_window_{windows[0]}" in launches:
             shapes.append(("stream window", f"stream_window_{windows[0]}",
                            7, 16, 1, windows[0]))
+        shapes += EXTRA_KERNEL_SHAPES
         rows = kernel_rows(torch, dev, shapes, launches, card)
         artifact["kernel_rows"] = rows
         artifact["device_compute_Msamples_per_s"] = device_compute_msps(

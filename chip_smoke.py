@@ -10,7 +10,8 @@ Phases (any failure exits non-zero, and no result line is printed):
             while a thread encodes phase 3's corpus.
 2. parity:  each kernel route against the plain torch version on the card,
             random inputs from a numpy seed, on the PARITY geometries;
-            tolerance 0 (PCM and final carry bit-equal).
+            tolerance 0 (PCM and final carry bit-equal); every kernel
+            launched, each geometry exactly the launches of its route.
 3. corpus:  decode_corpus_device(device="cuda") over the bench corpus mix
             (bench.py's counts, ~120 M samples) — launch counters reset just
             before and read just after — checked file by file against the
@@ -35,7 +36,8 @@ Phases (any failure exits non-zero, and no result line is printed):
             CLI — `acmtool -d -r -o` in process on three fixtures, equal
             to the goldens.
             Then the kernel's time at the shapes these paths give it
-            (B = 1) beside its plain version and its bound.
+            (B = 1), and at blocks that fit one CTA per SM or none, beside
+            its plain version and its bound.
 6. device lists, windows and processes, each part with the launch
             counters reset just before it and read just after:
             stream windows — one seeded 7/16 mono stream of STREAM_BLOCKS
@@ -46,9 +48,10 @@ Phases (any failure exits non-zero, and no result line is printed):
             object, and the full-file call: PCM, status and filler equal
             to decode_corpus_host of the same bytes, one launch per
             window, and no copy from the card while it decodes (the carry
-            is never fetched); a rows == 1 and a level-0 stream through
-            the per-pass route; a stale-amp-table stream through the host
-            fallback and through the ValueError;
+            is never fetched); a rows == 1 stream (one fused launch a
+            window) and a level-0 stream (one level-0 launch a window); a
+            stale-amp-table stream through the host fallback and through
+            the ValueError;
             carry-in — the kernel on [0, nb) in one launch equal to
             [0, m) then [m, nb) with wrapf handed over on the card, both
             equal to the plain version;
@@ -68,7 +71,7 @@ Phases (any failure exits non-zero, and no result line is printed):
             (oracle scan of short files of every class, pack_blocks, the
             unpack on the card): PCM, status and filler equal to
             decode_corpus_host, checksum() equal to the host sum and to the
-            cols-wire route's, both kernel routes launched;
+            cols-wire route's, the fused and level-0 kernels launched;
             bench — bench_torch.run_bench in process on the card at the
             full corpus width, on phase 3's files and phase 6's stream
             (no second encode), three rounds a group: every card field
@@ -76,7 +79,10 @@ Phases (any failure exits non-zero, and no result line is printed):
             phase 3's, its parity verdict PASS; its JSON line is printed.
             Last, the kernel's time at the shapes phases 6 and 7 gave it
             ([1, W] with a non-zero carry, the largest sharded and dense
-            groups), and one JSON line of kernels.
+            groups), and one JSON line of kernels: a row for each route
+            that ran (the main path's, those of the other paths' shapes,
+            and the wide passes and tail of blocks over 227 KB, with their
+            launches in phase 2).
 
 Phases 1-3 and the checks of phases 4-6 run at the depth they always had.
 Given to the bench (phase 7), which runs them in turns with repeats: phase
@@ -115,15 +121,19 @@ sys.path.insert(0, str(ROOT))
 import bench_torch  # noqa: E402
 from bench_torch import (MIX, STREAM_BLOCKS, STREAM_DISTINCT,  # noqa: E402
                          STREAM_SEED, STREAM_WINDOWS, bound, kernel_route,
-                         long_stream, make_corpus, mix_class_firsts)
+                         long_stream, make_corpus, mix_class_firsts,
+                         route_launches)
 from bench_torch import max_err as _max_err  # noqa: E402
 from bench_torch import random_inputs as _random_inputs  # noqa: E402
 from bench_torch import time_ms as _time_ms  # noqa: E402
+from bench_torch import time_ms_cold as _time_ms_cold  # noqa: E402
 
 #: phase 5's kernel shapes, one file per launch: (what, level, rows, nb).
 #: Whole bench-mix files through the stream; read_segment spans (a
 #: window's blocks plus one warm-up block, padded to 8 blocks); a rows == 1
-#: file (the per-pass route, one launch per level) of a 7/16 file's length
+#: file (fused, two warm-up blocks a span) of a 7/16 file's length; blocks
+#: that leave room for one CTA per SM, and blocks over 227 KB (wide flat
+#: passes, then the tail's tiles)
 NEW_SHAPES = [("stream, whole file", 7, 16, 300),
               ("stream, whole file", 4, 40, 1200),
               ("stream, whole file", 10, 4, 150),
@@ -131,8 +141,12 @@ NEW_SHAPES = [("stream, whole file", 7, 16, 300),
               ("read_segment, short", 7, 16, 8),
               ("read_segment, 50,000 frames", 7, 16, 32),
               ("read_segment, short", 4, 40, 8),
-              ("stream, rows == 1", 7, 1, 4800)]
-#: phase 6's per-pass streams: (what, level, rows, blocks, window)
+              ("stream, rows == 1", 7, 1, 4800),
+              ("one CTA per SM", 13, 2, 4),
+              ("blocks over 227 KB", 14, 1, 4),
+              ("blocks over 227 KB", 15, 16, 3)]
+#: phase 6's rows == 1 and level-0 streams: (what, level, rows, blocks,
+#: window)
 PASS_STREAMS = [("rows == 1", 7, 1, 4800, 512), ("level 0", 0, 2048, 400, 64)]
 #: phase 6's split launches: (level, rows, nb, blocks in the first launch)
 SPLITS = [(7, 16, 2048, 1000), (4, 40, 1200, 7), (10, 4, 150, 77),
@@ -147,11 +161,18 @@ CLI_FIXTURES = ("speech_22k_mono", "level0", "rows1")
 #: kernel parity geometries (level, rows, files, blocks per file): the
 #: bench geometries, then the extremes, then the fused route's edges
 #: (many files; nb below one tile; n % 8 != 0, where k is staged in
-#: copies narrower than 16 bytes; spans of several tiles cut mid-file)
+#: copies narrower than 16 bytes; spans of several tiles cut mid-file),
+#: then rows == 1 (two warm-up blocks a span from level 2; 7/1 x 100 has
+#: spans of one block, so spans start at block 1), blocks that leave room
+#: for one CTA per SM, level 0 at a vector width of 2, and blocks over
+#: 227 KB with no wide pass and with two
 PARITY = [(7, 16, 3, 41), (4, 40, 2, 37), (10, 4, 2, 9), (0, 2048, 2, 5),
           (10, 1, 2, 6), (14, 1, 1, 4), (15, 16, 1, 3), (5, 33, 2, 7),
           (9, 3, 2, 6), (7, 16, 40, 13), (7, 16, 1, 3), (1, 3, 2, 9),
-          (2, 3, 3, 7), (7, 16, 100, 20), (4, 40, 200, 40)]
+          (2, 3, 3, 7), (7, 16, 100, 20), (4, 40, 200, 40),
+          (1, 1, 2, 9), (2, 1, 3, 7), (7, 1, 2, 40), (12, 1, 1, 5),
+          (7, 1, 1, 100), (13, 2, 1, 4), (12, 4, 2, 3), (10, 16, 2, 8),
+          (0, 50, 2, 9), (11, 16, 2, 2), (13, 3, 2, 2)]
 
 
 class SmokeFailure(RuntimeError):
@@ -161,6 +182,21 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def expected(synth_cuda, per_call: dict, times: int = 1) -> dict:
+    """Every launch counter after `times` calls of per_call launches."""
+    return {k: per_call.get(k, 0) * times for k in synth_cuda.launches}
+
+
+def path_kernels(synth_cuda, shapes) -> set:
+    """The kernels that (level, rows, nb, ...) shapes launch."""
+    return {k for level, rows, nb, *_ in shapes
+            for k in synth_cuda.kernel_launches(level, rows, nb)}
+
+
+#: the kernels of the bench corpus mix: 7/16, 4/40, 10/4 fused, 0/2048
+CORPUS_KERNELS = ("synth_fused", "synth_level0")
 
 
 def check_corpus(native, files, dc, host) -> int:
@@ -388,8 +424,9 @@ def phase5_stream(torch, synth_cuda, files, card) -> dict:
           f"{len(fixtures) + len(files)} middle and back-to-0 seeks and "
           f"{len(stale)} stale-amp-table seek sequences equal; launches "
           f"{launches}")
-    for route, count in launches.items():
-        check(count > 0, f"the stream path launched {route} no time")
+    for kernel in CORPUS_KERNELS:
+        check(launches[kernel] > 0,
+              f"the stream path launched {kernel} no time")
     # one profiled pass over the clean full-size files (the card against
     # synth_backend="host" in turns is bench_torch.py's, phase 7)
     clean = files[:-1]
@@ -463,10 +500,14 @@ def phase5_cli(synth_cuda) -> dict:
     return launches
 
 
-def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> None:
+def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> list:
     """The kernel at the shapes the stream and read_segment give it (one
-    file per launch) against its plain version; CUDA-event times beside
-    the plain version's and the bound."""
+    file per launch), and at blocks that fit one CTA per SM or none,
+    against its plain version; CUDA-event times (L2 warm, and flushed
+    before each launch) beside the plain version's and the bound. Returns
+    a JSON row (launches to be filled in) for each shape of the route of
+    blocks over 227 KB, which no path of real files reaches."""
+    out = []
     for what, level, rows, nb in NEW_SHAPES:
         k, v, w = _random_inputs(torch, dev, level, rows, 1, nb,
                                  seed=level * 7 + nb)
@@ -477,17 +518,33 @@ def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> None:
         check(err == 0, f"kernel disagrees at {level}/{rows} [1, {nb}]")
         ms = _time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=20)
+        cold_ms = _time_ms_cold(torch, lambda: synth_cuda.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=20)
         plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=5)
         bms, by = bound(level, rows, 1, nb)
         cfg = synth_cuda.fused_config(level, rows, 1, nb, dev)
         shape = (f", tile {cfg['T']}, span {cfg['span']}, grid "
-                 f"{cfg['grid']}" if cfg else "")
+                 f"{cfg['grid']}, {cfg['ctas_per_sm']} CTAs per SM"
+                 if cfg else "")
         print(f"phase 5: synthesis {what} {level}/{rows} [B=1, nb={nb}] "
-              f"{route}{shape}: kernel {ms} ms, plain {plain_ms} ms, bound "
-              f"{bms} ms ({by}), {bms / ms:.1%} of bound, max abs err {err} "
-              f"{card}")
+              f"{route}{shape}: kernel {ms} ms ({cold_ms} ms with L2 "
+              f"flushed), plain {plain_ms} ms, bound {bms} ms ({by}), "
+              f"{bms / ms:.1%} of bound, max abs err {err} {card}")
+        if route.endswith("synth_tail"):
+            out.append({
+                "name": f"{route} ({what}, [1, {nb}])", "route": "cuda",
+                "source": "libacm_tpu_torch/csrc/synth.cu",
+                "replaces": "libacm_tpu/ops/synth_pallas.py:72",
+                "launches": None, "max_abs_err": err, "ms": ms,
+                "cold_l2_ms": cold_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by, "library_ms": None,
+                "shape": f"level {level}, rows {rows}, B 1, nb {nb}",
+                "launches_per_call": synth_cuda.kernel_launches(level, rows,
+                                                                nb),
+            })
         del k, v, w, got, want
+    return out
 
 
 class _ReadOnly:
@@ -554,7 +611,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
           f"({samples / 22050 / 60:.1f} min at 22,050 Hz), "
           f"{len(data) / 1e6:.1f} MB, built in {t_build:.1f} s from "
           f"{STREAM_DISTINCT} encoded blocks")
-    path_launches = {"synth_fused": 0, "synth_pass": 0}
+    path_launches = expected(synth_cuda, {})
     per_shape = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "long.acm"
@@ -572,7 +629,8 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
                 torch.cuda.synchronize()
                 rates.append(samples / (time.perf_counter() - t0) / 1e6)
                 launches = dict(synth_cuda.launches)
-                check(launches == {"synth_fused": n_win, "synth_pass": 0},
+                check(launches == expected(synth_cuda, {"synth_fused": 1},
+                                           n_win),
                       f"window {W} from a {kind}: launches {launches}, "
                       f"expected one fused launch for each of {n_win} "
                       "windows")
@@ -611,8 +669,8 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
         pcm, meta = corpus.decode_stream_device(path, device=dev)
         torch.cuda.synchronize()
         t_full = time.perf_counter() - t0
-        check(dict(synth_cuda.launches) == {"synth_fused": 1,
-                                            "synth_pass": 0},
+        check(dict(synth_cuda.launches)
+              == expected(synth_cuda, {"synth_fused": 1}),
               f"full-file stream: launches {synth_cuda.launches}")
         _stream_equal(pcm, meta, host, "full-file stream")
         print(f"phase 6: full-file call (one window of {STREAM_BLOCKS} "
@@ -633,12 +691,15 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
         torch.cuda.synchronize()
         launches = dict(synth_cuda.launches)
         n_win = -(-nb // W)
-        check(launches == {"synth_fused": 0,
-                           "synth_pass": n_win * max(level, 1)},
-              f"{what} stream: launches {launches}")
+        per_window = synth_cuda.kernel_launches(level, rows, W)
+        check(sum(per_window.values()) == 1
+              and launches == expected(synth_cuda, per_window, n_win),
+              f"{what} stream: launches {launches}, expected {per_window} "
+              f"for each of {n_win} windows")
         _stream_equal(pcm, meta, h, f"{what} stream")
         print(f"phase 6: {what} stream {level}/{rows} x {nb} blocks, "
-              f"W={W}: equal to decode_corpus_host; launches {launches}")
+              f"W={W}: equal to decode_corpus_host; launches {launches}, "
+              "one a window")
         for r in path_launches:
             path_launches[r] += launches[r]
         per_shape[(level, rows, W)] = launches
@@ -731,8 +792,9 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
           f"{len(dc._buckets)} groups, checksum {checksum3:#010x} equal to "
           f"the single-device one, {len(files)} files equal to "
           f"decode_corpus_host; launches {launches}")
-    for route, n in launches.items():
-        check(n > 0, f"the sharded corpus launched {route} no time")
+    for kernel in CORPUS_KERNELS:
+        check(launches[kernel] > 0,
+              f"the sharded corpus launched {kernel} no time")
     shapes = largest_groups(synth_cuda, dc)
     del dc
     n_cards = torch.cuda.device_count()
@@ -821,14 +883,14 @@ def phase6_processes(files, summary3, checksum3) -> dict:
           f"two processes: shard sizes {[s['files'] for s in shards]}")
     check(sum(s["checksum"] for s in shards) & 0xFFFFFFFF == checksum3,
           "two processes: shard checksums do not add up to one process's")
-    launches = {"synth_fused": 0, "synth_pass": 0}
+    launches = {k: 0 for k in shards[0]["launches"]}
     for s in shards:
         check(s["device"].startswith("cuda"),
               f"a rank decoded on {s['device']}, not on the card")
-        for route in launches:
-            launches[route] += s["launches"][route]
-    check(all(launches.values()),
-          f"two processes: launches {launches}: a route ran no time")
+        for kernel in launches:
+            launches[kernel] += s["launches"][kernel]
+    check(all(launches[k] for k in CORPUS_KERNELS),
+          f"two processes: launches {launches}: a kernel ran no time")
     print(f"phase 6: two processes over gloo: shards "
           f"{[s['files'] for s in shards]} files on "
           f"{[s['device'] for s in shards]}, totals equal to one process "
@@ -866,6 +928,8 @@ def path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
         del got, want
         ms = _time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=20)
+        cold_ms = _time_ms_cold(torch, lambda: synth_cuda.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=20)
         plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=5)
         bms, by = bound(level, rows, B, W)
@@ -873,15 +937,17 @@ def path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
         shape = (f", tile {cfg['T']}, span {cfg['span']}, grid "
                  f"{cfg['grid']}" if cfg else "")
         print(f"kernel rows: synthesis {what} {level}/{rows} [B={B}, nb={W}], "
-              f"non-zero carry-in, {route}{shape}: kernel {ms} ms, plain "
-              f"{plain_ms} ms, bound {bms} ms ({by}), {bms / ms:.1%} of "
-              f"bound, max abs err {err} {card}")
+              f"non-zero carry-in, {route}{shape}: kernel {ms} ms "
+              f"({cold_ms} ms with L2 flushed), plain {plain_ms} ms, bound "
+              f"{bms} ms ({by}), {bms / ms:.1%} of bound, max abs err {err} "
+              f"{card}")
         rows_out.append({
             "name": f"{route} ({what}, [{B}, {W}])", "route": "cuda",
             "source": "libacm_tpu_torch/csrc/synth.cu",
             "replaces": "libacm_tpu/ops/synth_pallas.py:72",
-            "launches": launches[route], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "launches": route_launches(synth_cuda, launches, level, rows, W),
+            "max_abs_err": err, "ms": ms, "cold_l2_ms": cold_ms,
+            "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,
             "shape": f"level {level}, rows {rows}, B {B}, nb {W}",
         })
@@ -932,9 +998,9 @@ def phase7_dense(torch, synth_cuda, corpus, native, testing, files,
         check(dc.checksum() == cols.checksum(),
               f"phase 7: {what}: checksum {dc.checksum():#010x} != the "
               f"cols-wire route's {cols.checksum():#010x}")
-        for route, n in launches.items():
-            check(n > 0, f"phase 7: the dense route ({what}) launched "
-                  f"{route} no time")
+        for kernel in CORPUS_KERNELS:
+            check(launches[kernel] > 0, f"phase 7: the dense route ({what}) "
+                  f"launched {kernel} no time")
         print(f"phase 7: dense route, {what}: {len(subset)} files "
               f"({dc.summary.samples} samples, every class) equal to "
               f"decode_corpus_host, checksum {dc.checksum():#010x} equal to "
@@ -1041,22 +1107,31 @@ def main() -> int:
     phase_done("phase 1")
 
     # -- 2. kernel parity ---------------------------------------------------
-    parity_err = {"synth_fused": 0, "synth_pass": 0}
-    parity_n = {"synth_fused": 0, "synth_pass": 0}
+    # per kernel: the largest error, geometries and launches
+    parity_err = expected(synth_cuda, {})
+    parity_n = expected(synth_cuda, {})
+    parity_launches = expected(synth_cuda, {})
     for level, rows, B, nb in PARITY:
         k, v, w = _random_inputs(torch, dev, level, rows, B, nb,
                                  seed=level * 131 + rows)
         route = kernel_route(synth_cuda, level, rows, nb)
+        synth_cuda.reset_launches()
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         torch.cuda.synchronize()
+        launched = dict(synth_cuda.launches)
         want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
         err = _max_err(torch, got, want, level)
-        parity_err[route] = max(parity_err[route], err)
-        parity_n[route] += 1
+        check(launched == expected(synth_cuda, synth_cuda.kernel_launches(
+            level, rows, nb)), f"{level}/{rows}: launches {launched}")
+        for kernel, n in launched.items():
+            if n:
+                parity_err[kernel] = max(parity_err[kernel], err)
+                parity_n[kernel] += 1
+                parity_launches[kernel] += n
         print(f"phase 2: {level}/{rows} B={B} nb={nb} {route}: max abs err "
               f"{err} (tolerance 0)")
         check(err == 0, f"kernel disagrees with plain at {level}/{rows}")
-    check(all(parity_n.values()), "a kernel route was not exercised")
+    check(all(parity_n.values()), f"a kernel was not exercised: {parity_n}")
 
     phase_done("phase 2")
 
@@ -1079,8 +1154,13 @@ def main() -> int:
     print(f"phase 3: decode_corpus_device: {samples} samples, "
           f"{len(dc._buckets)} chunks, launches {main_launches}, "
           f"first run {t_first:.3f} s {card}")
+    main_kernels = path_kernels(synth_cuda, [(lv, rw, nb) for lv, rw, _, nb
+                                             in shapes])
+    check(main_kernels == set(CORPUS_KERNELS),
+          f"main path's shapes route to {sorted(main_kernels)}")
     for name_, n_ in main_launches.items():
-        check(n_ > 0, f"main path launched {name_} no time")
+        check((n_ > 0) == (name_ in main_kernels),
+              f"main path launched {name_} {n_} times")
     t0 = time.perf_counter()
     host = corpus.decode_corpus_host(files, workers=os.cpu_count() or 1)
     t_host = time.perf_counter() - t0
@@ -1116,6 +1196,8 @@ def main() -> int:
         del got, want
         ms = _time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=20)
+        cold_ms = _time_ms_cold(torch, lambda: synth_cuda.synth_pcm_batch(
+            k, v, w, level=level, rows=rows), reps=20)
         plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=5)
         bms, by = bound(level, rows, B, nb)
@@ -1129,8 +1211,9 @@ def main() -> int:
                  f"grid {cfg['grid']}, {cfg['threads']} threads"
                  if "T" in cfg else ""))
         print(f"phase 4: synthesis {level}/{rows} [B={B}, nb={nb}] "
-              f"{route}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}), {bms / ms:.1%} of bound "
+              f"{route}: kernel {ms:.6f} ms ({cold_ms:.6f} ms with L2 "
+              f"flushed), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}), "
+              f"{bms / ms:.1%} of bound ({bms / cold_ms:.1%} flushed) "
               f"{card}")
         kern_rows.setdefault(route, {
             "name": route, "route": "cuda",
@@ -1138,7 +1221,8 @@ def main() -> int:
             "replaces": "libacm_tpu/ops/synth_pallas.py:72",
             "launches": main_launches[route],
             "max_abs_err": max(err, parity_err[route]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "ms": ms, "cold_l2_ms": cold_ms, "plain_ms": plain_ms,
+            "bound_ms": bms,
             "bound_by": by, "library_ms": None,
             "smem_bytes": cfg["smem_bytes"],
             "ctas_per_sm": cfg["ctas_per_sm"],
@@ -1146,8 +1230,8 @@ def main() -> int:
             "parity": f"bit-equal on {parity_n[route]} geometries",
         })
         del k, v, w
-    check(set(kern_rows) == set(main_launches),
-          "a kernel route has no main-path shape to time")
+    check(set(kern_rows) == main_kernels,
+          "a kernel of the main path has no shape to time")
 
     phase_done("phase 4")
 
@@ -1158,7 +1242,12 @@ def main() -> int:
     paths["random_access"] = phase5_random_access(torch, synth_cuda, files,
                                                    card)
     paths["cli"] = phase5_cli(synth_cuda)
-    phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card)
+    rows5 = phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card)
+    for row in rows5:  # the route that no path of real files reaches
+        row["launches"] = sum(parity_launches[k]
+                              for k in row["launches_per_call"])
+        row["launches_by_path"] = {"parity": {
+            k: parity_launches[k] for k in row["launches_per_call"]}}
     phase_done("phase 5")
 
     # -- 6. device lists, windows, processes --------------------------------
@@ -1178,15 +1267,15 @@ def main() -> int:
     phase_done("phase 7 (dense route)")
     art = phase7_bench(files, st6["data"], checksum3)
     paths["bench"] = {
-        route: sum(n[route] for n in art["device_launches"].values())
-        for route in main_launches}
+        kernel: sum(n[kernel] for n in art["device_launches"].values())
+        for kernel in main_launches}
     phase_done("phase 7 (bench)")
     for route, row in kern_rows.items():
         row["launches_by_path"] = {p: n[route] for p, n in paths.items()}
     rows67 = path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
                               st6, sh6, dense7)
     print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]
-                      + rows67}))
+                      + rows67 + rows5}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@
 // (or the carry-in wrap0 at block 0). Since rows*cols is a multiple of 2s,
 // the index may count from any block boundary.
 //
-// Two routes, chosen by the host wrapper (ops/synth_cuda.py):
+// Three routes, chosen by geometry in the host wrapper (ops/synth_cuda.py):
 //
 // * synth_fused_kernel — level >= 1 and a tile of one block fits the
 //   shared memory of one CTA. It replaces an earlier
@@ -36,8 +36,10 @@
 //     rows >= 2, 2 for rows == 1 from level 2). That costs W blocks per
 //     span, not per tile. The CTA whose span ends at block nb writes the
 //     carry to wrap_f.
-//   - The tile is sized for two resident CTAs per SM, and the spans for
-//     about one wave of them (synth_cuda.fused_plan).
+//   - The tile is sized for two resident CTAs per SM, or for one where a
+//     block leaves no room for two (synth_cuda.fused_budget: 10/16, 11/8,
+//     12/3, 12/4, 13/1, 13/2), and the spans for about one wave of them
+//     (synth_cuda.fused_plan).
 //   - The next tile's k and vals are copied into a second staging buffer
 //     with cp.async (16 bytes a copy of k where n % 8 == 0 and k is
 //     16-byte aligned, else 8, 4 or 2) while the current tile's passes
@@ -55,11 +57,21 @@
 //     consecutive elements a thread, their halos shuffled from the lane
 //     before (last_passes), and PCM leaves in 16-byte stores, so they cost
 //     no shared-memory traffic, no barrier and no store sweep.
-// * synth_pass_kernel — every other geometry (tiles too large for shared
-//   memory; level 0). One launch
-//   per pass over each file's whole flat stream in device memory, the halo
-//   read from the flat predecessor or wrap0. Dequantize is fused into pass 0
-//   and the shift into the last pass.
+// * synth_level0_kernel — level 0 (no pass): k * val truncated, one
+//   bytes-bound pass of 16-byte vectors.
+// * blocks larger than one CTA's shared memory (227 KB: 11/16, 12/>=8,
+//   13/>=3, 14/*, 15/*): synth_pass_kernel runs each pass wider than
+//   synth_cuda.TAIL_STRIDE as one flat launch over the files in device
+//   memory, and synth_tail_kernel the remaining passes in one launch over
+//   flat tiles in shared memory that recompute their halo. They replace a
+//   first design that launched once per pass (level launches, a full int32
+//   round trip through device memory each, scalar loads, a division per
+//   element). A tail tile recomputes the halo of every pass it fuses
+//   rather than carrying it: a thread-block cluster sharing a block in
+//   distributed shared memory (8 x 227 KB) would need whole blocks of up
+//   to 2 MB of int32 (15/16) in one cluster, and would leave most SMs idle
+//   when a call has few blocks, while a tile needs only its halo of at
+//   most 4 * TAIL_STRIDE words and spreads any block over many CTAs.
 //
 // Arithmetic is uint32 (signed overflow is undefined in C++; the format
 // wraps), converted to int32 only for the arithmetic >> level.
@@ -67,8 +79,8 @@
 // Bound: k is read and PCM written once (4 bytes a sample) against about
 // 2*level+2 int32 operations a sample (dequantize, two adds per pass, the
 // shift). On an H100 (3.35 TB/s, 132 SMs x 64 int32 lanes x 1.98 GHz) the
-// bytes bound is the larger at 7/16 and 4/40 and the operations bound at
-// 10/4. Beyond either, the kernel pays a shared-memory load and store per
+// bytes bound is the larger at 7/16, 4/40 and level 0 and the operations
+// bound at 10/4. Beyond either, the kernel pays a shared-memory load and store per
 // element for each strip pass, with two barriers each, and the address
 // arithmetic of the strips; PERF.md holds its measured share of the bound
 // and the phase trace (SYNTH_PROFILE) of where a CTA's cycles go.

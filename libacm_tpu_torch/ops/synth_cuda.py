@@ -14,8 +14,8 @@ falls back to tensor ops.
 Bound: k is read (2 bytes) and PCM written (2 bytes) once per sample,
 against about 2*level+2 int32 operations (dequantize, two adds per FIR
 pass, the shift). On an H100 that makes the bytes bound the larger at
-7/16 and 4/40 and the operations bound the larger at 10/4 (chip_smoke.py
-`bound`). Two routes:
+7/16, 4/40 and level 0 and the operations bound the larger at 10/4
+(bench_torch.py `bound`). Three routes, by geometry:
 
 - fused (`synth_fused_kernel`): level >= 1 and a tile of one block fits
   one CTA's shared memory: tiles for two CTAs per SM where one block
@@ -24,14 +24,20 @@ pass, the shift). On an H100 that makes the bytes bound the larger at
   carrying the halo between tiles; a span that does not start at block 0
   first synthesizes the W = synth_torch.warmup_blocks(level, rows) blocks
   before it (1 for rows >= 2, 2 for rows == 1) from a zero carry, or from
-  wrap0 where they reach block 0, and drops their PCM. k is prefetched into shared
-  memory while the previous tile's passes run; the passes walk strips in
+  wrap0 where they reach block 0, and drops their PCM. k is prefetched
+  into shared memory while the previous tile's passes run; the passes walk strips in
   place, the last three run in registers and write 16-byte PCM stores.
   `fused_plan` sizes the tile for the resident CTAs per SM and the spans
   for about one wave of them.
-- per pass (`synth_pass_kernel`): tiles too large for shared memory, and
-  level 0. One launch per pass (one for level 0) over each
-  file's flat stream in device memory.
+- level 0 (`synth_level0_kernel`): one launch; k * val in 16-byte vectors
+  where n and the alignment of k allow (`level0_plan`).
+- blocks over one CTA's shared memory (`synth_pass_kernel`, then
+  `synth_tail_kernel`): one flat launch over each file's stream in device
+  memory per pass wider than TAIL_STRIDE, in 16-byte accesses, then one
+  launch of the remaining passes over flat tiles in shared memory with a
+  recomputed halo (`tail_pass`, `tail_halo`).
+
+`kernel_launches` says which kernels one call launches at a geometry.
 """
 
 from __future__ import annotations
