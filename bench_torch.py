@@ -279,17 +279,18 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def time_ms_cold(torch, fn, reps: int) -> float:
-    """Device time per call with the L2 cache flushed before each: a
-    write of 64 MiB, then CUDA events around the call alone, all queued
-    behind a sleeping kernel."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    """Device time per call with the 50 MB L2 cache flushed before each:
+    a read of 128 MiB (a read, so that the call does not pay for writing
+    back the flush's own lines), then CUDA events around the call alone,
+    all queued behind a sleeping kernel."""
+    flush = torch.zeros(32 << 20, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(100_000_000)
     for a, b in ev:
-        flush.zero_()
+        flush.sum()
         a.record()
         fn()
         b.record()

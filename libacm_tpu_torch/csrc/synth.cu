@@ -63,15 +63,12 @@
 //   13/>=3, 14/*, 15/*): synth_pass_kernel runs each pass wider than
 //   synth_cuda.TAIL_STRIDE as one flat launch over the files in device
 //   memory, and synth_tail_kernel the remaining passes in one launch over
-//   flat tiles in shared memory that recompute their halo. They replace a
-//   first design that launched once per pass (level launches, a full int32
-//   round trip through device memory each, scalar loads, a division per
-//   element). A tail tile recomputes the halo of every pass it fuses
-//   rather than carrying it: a thread-block cluster sharing a block in
-//   distributed shared memory (8 x 227 KB) would need whole blocks of up
-//   to 2 MB of int32 (15/16) in one cluster, and would leave most SMs idle
-//   when a call has few blocks, while a tile needs only its halo of at
-//   most 4 * TAIL_STRIDE words and spreads any block over many CTAs.
+//   flat tiles in shared memory that recompute their halo, rather than
+//   carry it: a thread-block cluster sharing a block in distributed
+//   shared memory (8 x 227 KB) would need whole blocks of up to 2 MB of
+//   int32 (15/16) in one cluster and would leave most SMs idle when a
+//   call has few blocks, while a tile needs only its halo of at most
+//   4 * TAIL_STRIDE words and spreads any block over many CTAs.
 //
 // Arithmetic is uint32 (signed overflow is undefined in C++; the format
 // wraps), converted to int32 only for the arithmetic >> level.
@@ -799,8 +796,7 @@ int acm_synth_fused(const void* k, const void* vals, const void* wrap0,
 }
 
 // Resident CTAs per SM of a kernel (0: synth_fused_kernel at this shared
-// memory, 1: synth_pass_kernel, 2: synth_tail_kernel at this shared
-// memory, 3: synth_level0_kernel), or -cudaError on failure.
+// memory, 1: synth_level0_kernel), or -cudaError on failure.
 int acm_synth_occupancy(int route, int threads, long long smem_bytes) {
   cudaError_t e = cudaSuccess;
   int n = 0;
@@ -808,15 +804,6 @@ int acm_synth_occupancy(int route, int threads, long long smem_bytes) {
     e = fused_attributes(smem_bytes);
     if (e == cudaSuccess) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_fused_kernel, threads,
-                                                        (size_t)smem_bytes);
-    }
-  } else if (route == 1) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_pass_kernel, threads, 0);
-  } else if (route == 2) {
-    e = cudaFuncSetAttribute(synth_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes);
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_tail_kernel, threads,
                                                         (size_t)smem_bytes);
     }
   } else {

@@ -25,8 +25,9 @@ pass, the shift). On an H100 that makes the bytes bound the larger at
   first synthesizes the W = synth_torch.warmup_blocks(level, rows) blocks
   before it (1 for rows >= 2, 2 for rows == 1) from a zero carry, or from
   wrap0 where they reach block 0, and drops their PCM. k is prefetched
-  into shared memory while the previous tile's passes run; the passes walk strips in
-  place, the last three run in registers and write 16-byte PCM stores.
+  into shared memory while the previous tile's passes run; the passes
+  walk strips in place, the last three run in registers and write
+  16-byte PCM stores.
   `fused_plan` sizes the tile for the resident CTAs per SM and the spans
   for about one wave of them.
 - level 0 (`synth_level0_kernel`): one launch; k * val in 16-byte vectors
@@ -295,15 +296,13 @@ def route(level: int, rows: int, nb: int) -> str:
 _occupancy: dict[tuple[int, str, int], int] = {}
 #: the occupancy query's kernel index and threads per CTA of each kernel
 _KERNELS = {"synth_fused": (0, _FUSED_THREADS),
-            "synth_pass": (1, _PASS_THREADS),
-            "synth_tail": (2, _TAIL_THREADS),
-            "synth_level0": (3, _LEVEL0_THREADS)}
+            "synth_level0": (1, _LEVEL0_THREADS)}
 
 
 def ctas_per_sm(kernel: str, smem_bytes: int, device: torch.device) -> int:
-    """Resident CTAs per SM of a kernel (a key of `launches`) at this
-    dynamic shared memory, as the CUDA runtime reports it
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    """Resident CTAs per SM of the main path's kernels ("synth_fused" at
+    this dynamic shared memory, or "synth_level0"), as the CUDA runtime
+    reports it (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     key = (device.index or 0, kernel, smem_bytes)
     if key not in _occupancy:
         lib = _load()

@@ -6,9 +6,9 @@ route, with a zero and a non-zero carry-in, bit equality required.
 
 In the manner of tools/pallas_parity_sweep.py. For each level (default
 0-15) the kernel wrapper runs on small batches on the card — rows near the
-classic 2048-word block and rows == 1 (the fused route where a block
-fits a CTA, level 0's kernel, and the wide passes and tail of blocks
-over 227 KB from level 13), and a split pair of launches whose second takes the
+classic 2048-word block and rows == 1 (the fused route where a block fits
+a CTA, level 0's kernel, and the wide passes and tail of blocks over 227
+KB from level 13), and a split pair of launches whose second takes the
 first's final carry on the device — and PCM and final carry are held
 bit-equal to the plain torch version on the same tensors. The CPU tests
 cover the plain version and a model of the kernel's schedule only; this
