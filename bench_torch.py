@@ -41,6 +41,12 @@ third:
            the bound (bound), the plain torch version and the launches on
            the path; device_compute_Msamples_per_s is the corpus rows'
            harmonic mean weighted by each geometry's share of the corpus.
+           Then the CUDA unpack on the wires the paths gave it (captured
+           by capture_wires in the counted runs: the largest chunk of each
+           corpus geometry, a stream window, random-access segments of 8
+           and 32 blocks), beside unpack_bound and its plain version (the
+           eager torch ops). No single PyTorch call computes either
+           function: library_ms is null.
 
 Correctness rides along: every device round's checksum() equals the first,
 the dense route's equals the cols-wire route's, every stream arm's PCM sum
@@ -71,7 +77,8 @@ there is no link to wait for. Its in-call backend shootout
 kernel rows take its place.
 
 Imports torch, numpy and libacm_tpu_torch only. chip_smoke.py takes
-make_corpus, long_stream, `bound` and the kernel timer from here: one
+make_corpus, long_stream, `bound`, the kernel timer, the unpack's wires
+(synthetic_wire, UNPACK_EDGES, capture_wires) and its bound from here: one
 definition each.
 """
 
@@ -646,6 +653,7 @@ def kernel_rows(torch, dev, shapes, launches, card: str) -> list[dict]:
             else synth_cuda.kernel_launches(level, rows, nb), level, rows, nb)
         rows_out.append({
             "name": f"{route} ({what}, {level}/{rows} [{B}, {nb}])",
+            "kernel": "synth",
             "route": "cuda", "source": "libacm_tpu_torch/csrc/synth.cu",
             "replaces": "libacm_tpu/ops/synth_pallas.py:72",
             "path": path if path in launches else "one call",
@@ -664,13 +672,260 @@ def kernel_rows(torch, dev, shapes, launches, card: str) -> list[dict]:
     return rows_out
 
 
+# -- the unpack kernel: wires, bound, rows --------------------------------------
+
+
+def synthetic_wire(seed: int, level: int, rows: int, batch: int, nb: int, *,
+                   has_wrap: bool = True, cls=None, pay=(None, None, None),
+                   wid=(None, None, None), wid_fill: int | None = None) -> dict:
+    """A cols-wire blob from a numpy seed, with the keyword arguments of
+    ops.synth_torch.unpack_cols_blob: {"blob": uint8 numpy, "level",
+    "rows", "batch", "nb", "lens", "has_wrap"}. The class map is random
+    (padding codes included) unless `cls` maps it to another; width and
+    payload bytes are random (width bytes all `wid_fill` where given);
+    each payload and width section has its natural length (the bits and
+    nibbles its columns need) unless `pay` / `wid` give one."""
+    from libacm_tpu_torch.parallel.corpus import _coalesce_wire
+
+    rng = np.random.default_rng(seed)
+    cols = 1 << level
+    cm = rng.integers(0, 256, (batch, nb, (cols + 3) // 4), dtype=np.uint8)
+    if cls is not None:
+        cm = cls(cm)
+    codes = ((cm[..., None] >> (np.arange(4) * 2)) & 3).reshape(
+        batch, nb, -1)[..., :cols].reshape(-1)
+    pays, wids = [], []
+    for f in range(3):
+        ncol = int((codes == f + 1).sum())
+        wl = -(-ncol // 2) if wid[f] is None else wid[f]
+        wb = (rng.integers(0, 256, wl, dtype=np.uint8) if wid_fill is None
+              else np.full(wl, wid_fill, np.uint8))
+        nibs = np.stack([wb & 15, wb >> 4], -1).reshape(-1)[:ncol]
+        bits = rows * int((nibs.astype(np.int64) + 1).sum())
+        pl = 2 * -(-bits // 16) if pay[f] is None else pay[f]
+        pays.append(rng.integers(0, 256, pl, dtype=np.uint8))
+        wids.append(wb)
+    secs = [cm.reshape(-1)] + pays + wids
+    secs.append(rng.integers(0, 1 << 16, batch * nb).astype(np.uint16))
+    if has_wrap:
+        secs.append(rng.integers(-(1 << 31), 1 << 31, batch * (2 * cols - 2),
+                                 dtype=np.int64).astype(np.int32))
+    blob, lens = _coalesce_wire(secs)
+    return {"blob": blob.copy(), "level": level, "rows": rows,
+            "batch": batch, "nb": nb, "lens": lens, "has_wrap": has_wrap}
+
+
+def random_wire(seed: int) -> dict:
+    """A synthetic_wire of a random geometry (level 0-15, up to 2^17
+    samples a file) from a numpy seed, each payload and width section at
+    its natural length, or (two in five) empty, one byte, or short."""
+    rng = np.random.default_rng(seed)
+    level = int(rng.integers(0, 16))
+    rows = int(rng.choice([1, 2, 3, 16, 40, int(rng.integers(1, 300))]))
+    cap = max(1, (1 << 17) // (rows << level))
+    batch = int(rng.integers(1, 4))
+    nb = int(rng.integers(1, min(cap, 200) + 1))
+
+    def length(short):
+        return None if rng.random() < 0.6 else short()
+
+    pay = tuple(length(lambda: int(rng.choice(
+        [0, 1, 2, 2 * int(rng.integers(1, 50))]))) for _ in range(3))
+    wid = tuple(length(lambda: int(rng.integers(0, 9))) for _ in range(3))
+    return synthetic_wire(seed, level, rows, batch, nb, pay=pay, wid=wid,
+                          has_wrap=bool(rng.random() < 0.5))
+
+
+def _zero_first_tile(cm):
+    """A level-2 class map whose first 1,024 columns are all zero."""
+    cm = cm.copy()
+    cm.reshape(-1)[:256] = 0
+    return cm
+
+
+#: the unpack's edges that real wires rarely or never show: name ->
+#: (seed, level, rows, batch, nb, synthetic_wire options)
+UNPACK_EDGES = {
+    "family absent (payload < 2 bytes)":
+        (1, 4, 9, 2, 5, {"pay": (1, 0, None)}),
+    "empty width stream": (2, 5, 7, 2, 4, {"wid": (None, 0, None)}),
+    "width stream shorter than the ordinals (clamp)":
+        (3, 5, 7, 2, 6, {"wid": (2, 1, 3)}),
+    "payload shorter than the columns (clamped words)":
+        (4, 4, 11, 2, 5, {"pay": (2, 6, 4)}),
+    "16-bit values in the last word":
+        (5, 3, 13, 2, 7, {"cls": lambda cm: cm | 0xFF, "wid_fill": 0xFF}),
+    "sections at odd byte offsets":
+        (6, 2, 5, 3, 5, {"wid": (3, 5, 7), "pay": (10, 14, 22)}),
+    "padding codes at level 0": (7, 0, 33, 3, 11, {}),
+    "padding codes at level 1": (8, 1, 17, 2, 9, {}),
+    "rows == 1": (9, 6, 1, 2, 9, {}),
+    "level 0, rows 2048": (10, 0, 2048, 2, 5, {}),
+    "N not a multiple of a tile": (11, 3, 6, 3, 50, {}),
+    "a tile with no non-zero column":
+        (12, 2, 6, 1, 600, {"cls": _zero_first_tile}),
+    "has_wrap false": (13, 7, 4, 2, 12, {"has_wrap": False}),
+    "several tiles of several width tiles": (14, 10, 3, 2, 5, {}),
+}
+
+
+def edge_wire(name: str) -> dict:
+    """UNPACK_EDGES[name] as a synthetic_wire."""
+    seed, level, rows, batch, nb, opts = UNPACK_EDGES[name]
+    return synthetic_wire(seed, level, rows, batch, nb, **opts)
+
+
+class capture_wires:
+    """Within `with capture_wires() as wires:`, every call of
+    ops.synth_torch.unpack_cols_blob (and so of synth_pcm_cols_blob) is
+    recorded in `wires` as a dict: a copy of the blob on its device and
+    the call's keyword arguments. The call itself runs as before."""
+
+    def __enter__(self) -> list[dict]:
+        from libacm_tpu_torch.ops import synth_torch
+
+        self._mod, self._real = synth_torch, synth_torch.unpack_cols_blob
+        wires: list[dict] = []
+
+        def spy(blob, **kw):
+            wires.append({"blob": blob.clone(), **kw})
+            return self._real(blob, **kw)
+
+        synth_torch.unpack_cols_blob = spy
+        return wires
+
+    def __exit__(self, *exc) -> None:
+        self._mod.unpack_cols_blob = self._real
+
+
+def wire_args(wire: dict) -> dict:
+    """The keyword arguments of unpack_cols_blob in a wire dict."""
+    return {k: wire[k] for k in ("level", "rows", "batch", "nb", "lens",
+                                 "has_wrap")}
+
+
+def unpack_bound(wire: dict) -> tuple[float, str]:
+    """Least time (ms) of one unpack call on this wire: the blob read and
+    k (2 B a sample), vals and wrap0 written once over HBM bandwidth,
+    against the int32 operations its data needs over the int32 ALU rate
+    (4 a value of a column that is not zero: shift, mask and the two of
+    the sign extension; 4 a column for its ordinal and offset). Returns
+    (ms, what bounds it)."""
+    level, rows, batch, nb = (wire[k] for k in ("level", "rows", "batch",
+                                                 "nb"))
+    lens = wire["lens"]
+    cols = 1 << level
+    n = batch * nb * cols
+    cls = wire["blob"][: batch * nb * ((cols + 3) // 4)]
+    if hasattr(cls, "cpu"):  # a tensor, on the card or not
+        cls = cls.cpu().numpy()
+    codes = ((cls.reshape(batch, nb, -1)[..., None] >> (np.arange(4) * 2))
+             & 3).reshape(batch, nb, -1)[..., :cols]
+    present = [lens[f] >= 2 and lens[3 + f] >= 1 for f in range(3)]
+    nz = sum(int((codes == f + 1).sum()) for f in range(3) if present[f])
+    wlen = 2 * cols - 2 if wire["has_wrap"] else 0
+    nbytes = (len(wire["blob"]) + 2 * n * rows + 4 * batch * nb
+              + 4 * batch * wlen)
+    ops = 4 * nz * rows + 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unpack_max_err(torch, got, want) -> int:
+    """Largest absolute difference of (k, vals, wrap0) triples."""
+    err = 0
+    for a, b in zip(got, want):
+        if (a is None) != (b is None):
+            return 1 << 31
+        if a is not None and a.numel():
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                               .abs().max().item()))
+    return err
+
+
+def unpack_rows(torch, shapes, launches, card: str) -> list[dict]:
+    """One row per (what, path, wire) of `shapes` (wire: a dict of
+    capture_wires, the blob on the card): the unpack kernel held to its
+    plain version on the same blob (tolerance 0), its time by CUDA events
+    over 20 calls (L2 warm, and flushed before each), the plain version's
+    (the eager torch ops the wire paths ran before the kernel), the bound,
+    and its launches on the path (path None: those of one call)."""
+    from libacm_tpu_torch.ops import synth_torch, unpack_cuda
+
+    rows_out = []
+    for what, path, wire in shapes:
+        blob, kw = wire["blob"], wire_args(wire)
+        got = unpack_cuda.unpack_cols_blob(blob, **kw)
+        want = synth_torch.unpack_cols_blob_plain(blob, **kw)
+        err = unpack_max_err(torch, got, want)
+        if err:
+            raise RuntimeError(f"unpack kernel disagrees with its plain "
+                               f"version ({what}): max abs err {err}")
+        del got, want
+        ms = time_ms(torch, lambda: unpack_cuda.unpack_cols_blob(blob, **kw),
+                     reps=20)
+        cold_ms = time_ms_cold(
+            torch, lambda: unpack_cuda.unpack_cols_blob(blob, **kw), reps=20)
+        plain_ms = time_ms(torch, lambda: synth_torch.unpack_cols_blob_plain(
+            blob, **kw), reps=5)
+        bms, by = unpack_bound(wire)
+        per_call = unpack_cuda.unpack_launches(kw["level"], kw["batch"],
+                                               kw["nb"], kw["has_wrap"])
+        n_launch = sum((launches[path] if path in launches else per_call)
+                       .get(k, 0) for k in per_call)
+        level, rows, B, nb = kw["level"], kw["rows"], kw["batch"], kw["nb"]
+        samples = B * nb * (rows << level)
+        rows_out.append({
+            "name": f"unpack ({what}, {level}/{rows} [{B}, {nb}])",
+            "kernel": "unpack", "route": "cuda",
+            "source": "libacm_tpu_torch/csrc/unpack.cu",
+            "replaces": "libacm_tpu/ops/packing.py:128",
+            "path": path if path in launches else "one call",
+            "launches": n_launch, "launches_per_call": per_call,
+            "max_abs_err": err, "ms": ms, "cold_l2_ms": cold_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "bound_share": bms / ms, "library_ms": None,
+            "Msamples_per_s": samples / ms / 1e3, "wire_bytes": int(
+                blob.numel()), "has_wrap": kw["has_wrap"],
+            "level": level, "rows": rows, "B": B, "nb": nb,
+        })
+        log(f"  unpack {what} {level}/{rows} [{B}, {nb}]: {ms:.4f} ms "
+            f"({cold_ms:.4f} with L2 flushed), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.5f} ms ({by}), {bms / ms:.1%} of bound {card}")
+    return rows_out
+
+
+def unpack_shapes(wires: dict[str, list[dict]], window: int) -> list:
+    """The unpack rows' (what, path, wire): the largest chunk of each
+    corpus geometry, the first stream window of `window` blocks, and the
+    first 7/16 random-access segments of 8 and of 32 blocks, from the
+    wires the bench's counted runs unpacked."""
+    per_geom: dict[tuple[int, int], dict] = {}
+    for w in wires.get("corpus", []):
+        g = (w["level"], w["rows"])
+        if g not in per_geom or per_geom[g]["batch"] < w["batch"]:
+            per_geom[g] = w
+    out = [("corpus chunk", "corpus", w) for _, w in sorted(
+        per_geom.items(), key=lambda gw: -gw[1]["batch"] * gw[1]["nb"]
+        * (gw[0][1] << gw[0][0]))]
+    out += [("stream window", f"stream_window_{window}", w)
+            for w in wires.get(f"stream_window_{window}", [])[:1]]
+    for nb in (8, 32):
+        out += [("random-access segment", "random_access", w)
+                for w in [w for w in wires.get("random_access", [])
+                          if (w["level"], w["rows"], w["nb"]) == (7, 16, nb)
+                          ][:1]]
+    return out
+
+
 def device_compute_msps(rows: list[dict],
                         geoms: dict[tuple[int, int], int]) -> float | None:
-    """The kernel's rate over the corpus geometries: the harmonic
-    (time-weighted) mean of the corpus rows' rates, weighted by each
-    geometry's share of the corpus's samples."""
+    """The synthesis kernel's rate over the corpus geometries: the
+    harmonic (time-weighted) mean of the corpus rows' rates, weighted by
+    each geometry's share of the corpus's samples."""
     best = {(r["level"], r["rows"]): r["Msamples_per_s"] for r in rows
-            if r["path"] == "corpus"}
+            if r["path"] == "corpus" and r.get("kernel") != "unpack"}
     if not best:
         return None
     shares = {g: float(geoms.get(g, 1)) for g in best}
@@ -692,7 +947,7 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
     import libacm_tpu_torch as acm
     from libacm_tpu_torch import io as tio
     from libacm_tpu_torch import testing
-    from libacm_tpu_torch.ops import synth_cuda
+    from libacm_tpu_torch.ops import synth_cuda, unpack_cuda
     from libacm_tpu_torch.parallel import (RandomAccessCorpus, build_index,
                                            corpus)
     from libacm_tpu_torch.scan import native
@@ -713,6 +968,7 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
         raise RuntimeError("the port's C++ scanner did not build")
     if on_card:
         synth_cuda.build()
+        unpack_cuda.build()
 
     # -- data ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -731,12 +987,19 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
     threads_all = os.cpu_count() or 1
     launches: dict[str, dict] = {}
 
+    #: the wires the counted runs of each path unpacked (capture_wires)
+    wires: dict[str, list[dict]] = {}
+
     def counted(path: str, fn):
-        """fn() with the kernel's launch counters reset before and read
-        after, under `path`."""
+        """fn() with the kernels' launch counters (synthesis and unpack)
+        reset before and read after, under `path`; the wires it unpacked
+        go to wires[path]."""
         synth_cuda.reset_launches()
-        out = fn()
-        launches[path] = dict(synth_cuda.launches)
+        unpack_cuda.reset_launches()
+        with capture_wires() as got:
+            out = fn()
+        launches[path] = dict(synth_cuda.launches) | dict(unpack_cuda.launches)
+        wires[path] = got
         return out
 
     def device_round(**kw) -> int:
@@ -1004,6 +1267,8 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
                            7, 16, 1, windows[0]))
         shapes += EXTRA_KERNEL_SHAPES
         rows = kernel_rows(torch, dev, shapes, launches, card)
+        rows += unpack_rows(torch, unpack_shapes(wires, windows[0]),
+                            launches, card)
         artifact["kernel_rows"] = rows
         artifact["device_compute_Msamples_per_s"] = device_compute_msps(
             rows, geoms)

@@ -6,22 +6,34 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. card:    the card's name and power limit (nvidia-smi); build the CUDA
-            synthesis kernels (nvcc, sm_90a) and the port's C++ scanner,
-            while a thread encodes phase 3's corpus.
-2. parity:  each kernel route against the plain torch version on the card,
-            random inputs from a numpy seed, on the PARITY geometries;
-            tolerance 0 (PCM and final carry bit-equal); every kernel
-            launched, each geometry exactly the launches of its route.
+            synthesis kernels and the cols-wire unpack (one nvcc each,
+            sm_90a) and the port's C++ scanner, all started together, while
+            a thread encodes phase 3's corpus and phase 6's long stream.
+2. parity:  each synthesis route against the plain torch version on the
+            card, random inputs from a numpy seed, on the PARITY
+            geometries; tolerance 0 (PCM and final carry bit-equal); every
+            kernel launched, each geometry exactly the launches of its
+            route. The unpack kernel (csrc/unpack.cu) against its plain
+            version (k, vals and wrap0 bit-equal, three launches a call) on
+            bench_torch.UNPACK_EDGES, UNPACK_RANDOM seeded random wires, and
+            the wires the paths give it (captured by
+            bench_torch.capture_wires): every chunk of the bench corpus mix,
+            every window of the long stream at W = 2048, and the segments
+            of 40 random-access windows.
 3. corpus:  decode_corpus_device(device="cuda") over the bench corpus mix
             (bench.py's counts, ~120 M samples) — launch counters reset just
-            before and read just after — checked file by file against the
+            before and read just after: one synthesis launch and one unpack
+            call (three kernels) a chunk — checked file by file against the
             port's decode_corpus_host (PCM, status, filler words), and its
             checksum() against the same masked sum taken on the host.
 4. numbers: one corpus decode under torch.profiler (wall, host scan, the
             card's busy share and its kernels by time), each kernel's time
             per bench geometry with CUDA events beside the plain version's
             time and the bound, its launch shape (shared memory per CTA,
-            resident CTAs per SM).
+            resident CTAs per SM); the unpack's time on the largest chunk
+            of each corpus geometry, a stream window and random-access
+            segments of 8 and 32 blocks, beside its plain version (the
+            eager torch ops) and bench_torch.unpack_bound.
 5. reference API on the card, three paths, each with the launch
             counters reset just before it and read just after:
             stream — every tests/fixtures file and one full-size file of
@@ -32,9 +44,10 @@ Phases (any failure exits non-zero, and no result line is printed):
             stale-amp-table seek sequences;
             random access — 300 random windows of 1-50,000 frames over
             the 190-file corpus through RandomAccessCorpus(device="cuda"),
-            equal to backend="host";
+            equal to backend="host", one unpack call a segment;
             CLI — `acmtool -d -r -o` in process on three fixtures, equal
-            to the goldens.
+            to the goldens. The stream and the CLI synthesize dense k: no
+            unpack launch.
             Then the kernel's time at the shapes these paths give it
             (B = 1), and at blocks that fit one CTA per SM or none, beside
             its plain version and its bound.
@@ -46,10 +59,12 @@ Phases (any failure exits non-zero, and no result line is printed):
             "cuda", window_blocks=W) for a W that divides the block count
             and one that does not, from a path and from a read()-only
             object, and the full-file call: PCM, status and filler equal
-            to decode_corpus_host of the same bytes, one launch per
-            window, and no copy from the card while it decodes (the carry
-            is never fetched); a rows == 1 stream (one fused launch a
-            window) and a level-0 stream (one level-0 launch a window); a
+            to decode_corpus_host of the same bytes, one synthesis launch
+            and one unpack call a window, no copy from the card while it
+            decodes (the carry is never fetched) and fewer than 10 device
+            operations a window under the profiler, the copy included; a
+            rows == 1 stream (one fused launch a window) and a level-0
+            stream (one level-0 launch a window); a
             stale-amp-table stream through the host fallback and through
             the ValueError;
             carry-in — the kernel on [0, nb) in one launch equal to
@@ -58,7 +73,7 @@ Phases (any failure exits non-zero, and no result line is printed):
             sharded corpus — phase 3's corpus through
             decode_corpus_device(devices=[cuda:0, cuda:0]) (and over every
             card where there are several): checksum() equal to phase 3's,
-            results equal to decode_corpus_host;
+            results equal to decode_corpus_host, one unpack call a group;
             two processes — two ranks of tests/_torch_dist_worker.py over
             gloo, each decoding its manifest shard on the card, totals
             equal to the one-process summary.
@@ -82,7 +97,9 @@ Phases (any failure exits non-zero, and no result line is printed):
             groups), and one JSON line of kernels: a row for each route
             that ran (the main path's, those of the other paths' shapes,
             and the wide passes and tail of blocks over 227 KB, with their
-            launches in phase 2).
+            launches in phase 2; and the unpack's rows of phase 4, with
+            their launches on the corpus, the stream windows and random
+            access).
 
 Phases 1-3 and the checks of phases 4-6 run at the depth they always had.
 Given to the bench (phase 7), which runs them in turns with repeats: phase
@@ -120,9 +137,11 @@ sys.path.insert(0, str(ROOT))
 # its timer have one definition, in the port's bench
 import bench_torch  # noqa: E402
 from bench_torch import (MIX, STREAM_BLOCKS, STREAM_DISTINCT,  # noqa: E402
-                         STREAM_SEED, STREAM_WINDOWS, bound, kernel_route,
-                         long_stream, make_corpus, mix_class_firsts,
-                         route_launches)
+                         STREAM_SEED, STREAM_WINDOWS, UNPACK_EDGES, bound,
+                         capture_wires, edge_wire, kernel_route, long_stream,
+                         make_corpus, mix_class_firsts, random_wire,
+                         route_launches, unpack_max_err, unpack_shapes,
+                         wire_args)
 from bench_torch import max_err as _max_err  # noqa: E402
 from bench_torch import random_inputs as _random_inputs  # noqa: E402
 from bench_torch import time_ms as _time_ms  # noqa: E402
@@ -175,6 +194,12 @@ PARITY = [(7, 16, 3, 41), (4, 40, 2, 37), (10, 4, 2, 9), (0, 2048, 2, 5),
           (0, 50, 2, 9), (11, 16, 2, 2), (13, 3, 2, 2)]
 
 
+#: phase 2's random unpack wires (bench_torch.random_wire seeds)
+UNPACK_RANDOM = range(24)
+#: the unpack kernels, as one call launches them, joined like a route
+UNPACK_ROUTE = "unpack_reduce+unpack_scan+unpack_values"
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -197,6 +222,37 @@ def path_kernels(synth_cuda, shapes) -> set:
 
 #: the kernels of the bench corpus mix: 7/16, 4/40, 10/4 fused, 0/2048
 CORPUS_KERNELS = ("synth_fused", "synth_level0")
+
+
+def unpack_expected(unpack_cuda, calls: int) -> dict:
+    """Every unpack counter after `calls` calls with columns (three
+    kernels each)."""
+    return {k: calls for k in unpack_cuda.launches}
+
+
+def unpack_parity(torch, unpack_cuda, synth_torch, what: str, wires) -> int:
+    """The unpack kernel ≡ its plain version on each wire (dicts with the
+    blob on the card), tolerance 0, each call exactly the launches of
+    unpack_launches. Returns the number of launches."""
+    n = 0
+    for wire in wires:
+        blob, kw = wire["blob"], wire_args(wire)
+        unpack_cuda.reset_launches()
+        got = unpack_cuda.unpack_cols_blob(blob, **kw)
+        torch.cuda.synchronize()
+        launched = dict(unpack_cuda.launches)
+        per_call = unpack_cuda.unpack_launches(kw["level"], kw["batch"],
+                                               kw["nb"], kw["has_wrap"])
+        check(launched == {k: per_call.get(k, 0) for k in launched},
+              f"unpack {what}: launches {launched}, expected {per_call}")
+        err = unpack_max_err(torch, got,
+                             synth_torch.unpack_cols_blob_plain(blob, **kw))
+        check(err == 0, f"unpack kernel disagrees with plain ({what}, "
+              f"{kw['level']}/{kw['rows']} [{kw['batch']}, {kw['nb']}]): "
+              f"max abs err {err}")
+        n += sum(launched.values())
+        del got
+    return n
 
 
 def check_corpus(native, files, dc, host) -> int:
@@ -278,7 +334,7 @@ def print_breakdown(label: str, wall: float, ranked: list, card: str,
     print(f"{label}: profiled wall {wall * 1e3} ms{host_note}, device busy "
           f"{busy} ms ({busy / (wall * 1e3):.1%} of wall) {card}")
     for i, (ms, count, key) in enumerate(ranked):
-        if i < 8 or "synth_" in key:
+        if i < 8 or "synth_" in key or "unpack_" in key:
             print(f"  device #{i + 1}: {ms} ms in {count} x {key[:90]}")
 
 
@@ -348,6 +404,36 @@ def _seek_drain(stream, errors, pre, tgt) -> bytes:
     return _drain(stream, errors)
 
 
+def phase2_path_wires(torch, corpus, files, stream_data) -> dict:
+    """The wires the main paths unpack, each blob copied on the card as the
+    path gave it (bench_torch.capture_wires), under the bench's path names:
+    every chunk of the bench corpus mix ("corpus"), every window of the
+    long 7/16 stream at W = STREAM_WINDOWS[0] ("stream_window_<W>"), and
+    the segments of 40 seeded random-access windows ("random_access")."""
+    from libacm_tpu_torch.parallel import RandomAccessCorpus
+
+    out = {}
+    with capture_wires() as wires:
+        corpus.decode_corpus_device(files, device="cuda").block_until_ready()
+    out["corpus"] = wires
+    with capture_wires() as wires:
+        corpus.decode_stream_device(_ReadOnly(stream_data), device="cuda",
+                                    window_blocks=STREAM_WINDOWS[0])
+    out[f"stream_window_{STREAM_WINDOWS[0]}"] = wires
+    rac = RandomAccessCorpus(files, device="cuda")
+    rng = np.random.default_rng(9)
+    with capture_wires() as wires:
+        for _ in range(40):
+            i = int(rng.integers(0, len(files)))
+            rac.read(i, int(rng.integers(0, max(rac.pcm_total(i), 1))),
+                     int(rng.integers(1, 50_001)))
+    out["random_access"] = wires
+    torch.cuda.synchronize()
+    for what, wires in out.items():
+        check(len(wires) > 0, f"phase 2: no {what} wire was unpacked")
+    return out
+
+
 def phase5_stream(torch, synth_cuda, files, card) -> dict:
     """Every fixture and one full-size file per bench-mix class through the
     port's stream on the card, each against the same stream under
@@ -356,11 +442,13 @@ def phase5_stream(torch, synth_cuda, files, card) -> dict:
     import libacm_tpu_torch as acm
     from libacm_tpu_torch import io as tio
     from libacm_tpu_torch.format import cli_total_bytes
+    from libacm_tpu_torch.ops import unpack_cuda
 
     err = acm.AcmException
     fixtures = sorted((ROOT / "tests" / "fixtures").glob("*.acm"))
     check(len(fixtures) >= 20, "tests/fixtures is missing files")
     synth_cuda.reset_launches()
+    unpack_cuda.reset_launches()
     n = 0
     for path in fixtures:
         card_s = acm.acm_open_file(path, device="cuda")
@@ -418,15 +506,18 @@ def phase5_stream(torch, synth_cuda, files, card) -> dict:
                                          synth_backend="host"), err, pre, tgt)
         check(got == want, f"{name} ({pre}, {tgt}): card differs from host")
     launches = dict(synth_cuda.launches)
+    unpacked = dict(unpack_cuda.launches)
     print(f"phase 5: stream: {n} streams ({len(fixtures)} fixtures, "
           f"{len(files)} full-size bench-mix files) equal to "
           f"synth_backend='host' and the goldens; "
           f"{len(fixtures) + len(files)} middle and back-to-0 seeks and "
           f"{len(stale)} stale-amp-table seek sequences equal; launches "
-          f"{launches}")
+          f"{launches} {unpacked}")
     for kernel in CORPUS_KERNELS:
         check(launches[kernel] > 0,
               f"the stream path launched {kernel} no time")
+    check(not any(unpacked.values()), f"the stream path (dense k) launched "
+          f"the unpack: {unpacked}")
     # one profiled pass over the clean full-size files (the card against
     # synth_backend="host" in turns is bench_torch.py's, phase 7)
     clean = files[:-1]
@@ -434,7 +525,7 @@ def phase5_stream(torch, synth_cuda, files, card) -> dict:
         acm.acm_open_decoder(d, device="cuda").read_loop(1 << 30)
         for d in clean])
     print_breakdown("phase 5: stream decode", wall, ranked, card)
-    return launches
+    return launches | unpacked
 
 
 def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
@@ -442,6 +533,7 @@ def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
     RandomAccessCorpus on the card, each equal to backend="host" (the
     bench's 1,000 windows, each held to the host route too, follow in
     phase 7)."""
+    from libacm_tpu_torch.ops import unpack_cuda
     from libacm_tpu_torch.parallel import RandomAccessCorpus
 
     rac = RandomAccessCorpus(corpus_files, device="cuda")
@@ -455,8 +547,10 @@ def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
         windows.append((i, int(rng.integers(0, max(total, 1))),
                         int(rng.integers(1, 50_001))))
     synth_cuda.reset_launches()
+    unpack_cuda.reset_launches()
     got = [rac.read(i, s, n) for i, s, n in windows]
     launches = dict(synth_cuda.launches)
+    unpacked = dict(unpack_cuda.launches)
     want = [host.read(i, s, n) for i, s, n in windows]
     frames = 0
     for (i, s, n), g, w in zip(windows, got, want):
@@ -465,20 +559,26 @@ def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
         frames += len(g)
     print(f"phase 5: random access: {RA_WINDOWS} windows ({frames} frames) "
           f"over {len(corpus_files)} files equal to backend='host'; launches "
-          f"{launches}")
+          f"{launches} {unpacked}")
     check(sum(launches.values()) > 0, "random access launched no kernel")
+    # one unpack call (three kernels) a segment, beside its synthesis
+    check(unpacked == unpack_expected(unpack_cuda, sum(launches.values())),
+          f"random access: unpack launches {unpacked} for "
+          f"{sum(launches.values())} segments")
     wall, ranked = _profiled(torch, lambda: [rac.read(*w)
                                              for w in windows[:100]])
     print_breakdown("phase 5: 100 random-access windows", wall, ranked, card)
-    return launches
+    return launches | unpacked
 
 
 def phase5_cli(synth_cuda) -> dict:
     """acmtool -d -r -o in process on the card, equal to the goldens."""
     from libacm_tpu_torch import cli
+    from libacm_tpu_torch.ops import unpack_cuda
 
     os.environ.pop("LIBACM_TPU_TORCH_DEVICE", None)  # the card
     synth_cuda.reset_launches()
+    unpack_cuda.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         for name in CLI_FIXTURES:
             src = ROOT / "tests" / "fixtures" / f"{name}.acm"
@@ -494,10 +594,13 @@ def phase5_cli(synth_cuda) -> dict:
                   == (gold / f"{name}.info").read_text(),
                   f"acmtool -d {name}: info line differs from the golden")
     launches = dict(synth_cuda.launches)
+    unpacked = dict(unpack_cuda.launches)
     print(f"phase 5: CLI: acmtool -d -r -o on {', '.join(CLI_FIXTURES)} "
-          f"equal to the goldens; launches {launches}")
+          f"equal to the goldens; launches {launches} {unpacked}")
     check(sum(launches.values()) > 0, "the CLI launched no kernel")
-    return launches
+    check(not any(unpacked.values()), f"the CLI (dense k) launched the "
+          f"unpack: {unpacked}")
+    return launches | unpacked
 
 
 def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> list:
@@ -592,16 +695,13 @@ def stream_over_cards(torch, corpus, path, host, card) -> None:
               f"Msamples/s (host clock) {card}")
 
 
-def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
-    """The windowed stream at full width. Returns the launches of the
-    whole path, of one decode for each (level, rows, W) shape, and the
-    long stream's bytes (phase 7's bench decodes them again)."""
-    from libacm_tpu_torch.parallel import build_index
+def phase6_stream(torch, synth_cuda, corpus, testing, dev, card, data,
+                  t_build) -> dict:
+    """The windowed stream at full width, on the long stream phase 1
+    built. Returns the launches of the whole path and of one decode for
+    each (level, rows, W) shape."""
+    from libacm_tpu_torch.ops import unpack_cuda
 
-    t0 = time.perf_counter()
-    data = long_stream(testing, build_index, STREAM_SEED, STREAM_BLOCKS,
-                       STREAM_DISTINCT)
-    t_build = time.perf_counter() - t0
     host = corpus.decode_corpus_host([data])[0]
     samples = len(host.pcm)
     check(host.status == 0 and host.filler_words == 0
@@ -609,9 +709,10 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
           "phase 6: the long stream does not decode cleanly on the host")
     print(f"phase 6: long stream: {STREAM_BLOCKS} blocks, {samples} samples "
           f"({samples / 22050 / 60:.1f} min at 22,050 Hz), "
-          f"{len(data) / 1e6:.1f} MB, built in {t_build:.1f} s from "
-          f"{STREAM_DISTINCT} encoded blocks")
-    path_launches = expected(synth_cuda, {})
+          f"{len(data) / 1e6:.1f} MB, built in {t_build:.1f} s (phase 1) "
+          f"from {STREAM_DISTINCT} encoded blocks")
+    path_launches = expected(synth_cuda, {}) | unpack_expected(unpack_cuda,
+                                                               0)
     per_shape = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "long.acm"
@@ -623,6 +724,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
                 src = path if kind == "path" else _ReadOnly(data)
                 torch.cuda.synchronize()
                 synth_cuda.reset_launches()
+                unpack_cuda.reset_launches()
                 t0 = time.perf_counter()
                 pcm, meta = corpus.decode_stream_device(
                     src, device=dev, window_blocks=W)
@@ -634,6 +736,12 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
                       f"window {W} from a {kind}: launches {launches}, "
                       f"expected one fused launch for each of {n_win} "
                       "windows")
+                check(dict(unpack_cuda.launches)
+                      == unpack_expected(unpack_cuda, n_win),
+                      f"window {W} from a {kind}: unpack launches "
+                      f"{unpack_cuda.launches}, expected one unpack call "
+                      f"for each of {n_win} windows")
+                launches |= unpack_cuda.launches
                 check(tuple(pcm.shape) == (n_win * W, 2048)
                       and pcm.device.type == "cuda",
                       f"window {W}: PCM {tuple(pcm.shape)} on {pcm.device}")
@@ -643,7 +751,8 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
                 per_shape[(7, 16, W)] = launches
                 del pcm
             print(f"phase 6: stream windows W={W}: {n_win} windows, one "
-                  f"fused launch each, from a path and a read()-only "
+                  f"fused launch and one unpack call (three kernels) each, "
+                  f"from a path and a read()-only "
                   f"object equal to decode_corpus_host; {rates} Msamples/s "
                   f"(host clock, one decode each) {card}")
         # no copy from the card while the stream decodes: the carry stays
@@ -656,6 +765,15 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
         fetched = [key for _, _, key in ranked if "DtoH" in key]
         check(not fetched, f"the windowed stream copied from the card: "
               f"{fetched}")
+        # the copy, the unpack and the synthesis: no eager unpack
+        n_win = -(-STREAM_BLOCKS // STREAM_WINDOWS[0])
+        ops = sum(count for _, count, _ in ranked)
+        print(f"phase 6: stream W={STREAM_WINDOWS[0]}: {ops} device "
+              f"operations for {n_win} windows, {ops / n_win} a window, copy "
+              "included")
+        check(not ranked or ops / n_win < 10,
+              f"the windowed stream ran {ops / n_win} device operations a "
+              "window (10 or more: an eager unpack?)")
         if ranked:
             print("phase 6: no device-to-host copy in the profiled "
                   "windowed decode: the carry was never fetched")
@@ -665,13 +783,17 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
             path, device=dev, window_blocks=STREAM_WINDOWS[0]),
             f"phase 6: stream W={STREAM_WINDOWS[0]}")
         synth_cuda.reset_launches()
+        unpack_cuda.reset_launches()
         t0 = time.perf_counter()
         pcm, meta = corpus.decode_stream_device(path, device=dev)
         torch.cuda.synchronize()
         t_full = time.perf_counter() - t0
         check(dict(synth_cuda.launches)
-              == expected(synth_cuda, {"synth_fused": 1}),
-              f"full-file stream: launches {synth_cuda.launches}")
+              == expected(synth_cuda, {"synth_fused": 1})
+              and dict(unpack_cuda.launches)
+              == unpack_expected(unpack_cuda, 1),
+              f"full-file stream: launches {synth_cuda.launches} "
+              f"{unpack_cuda.launches}")
         _stream_equal(pcm, meta, host, "full-file stream")
         print(f"phase 6: full-file call (one window of {STREAM_BLOCKS} "
               f"blocks) equal to both: {samples / t_full / 1e6} Msamples/s "
@@ -686,6 +808,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
                                      n_blocks=nb)
         h = corpus.decode_corpus_host([d])[0]
         synth_cuda.reset_launches()
+        unpack_cuda.reset_launches()
         pcm, meta = corpus.decode_stream_device(_ReadOnly(d), device=dev,
                                                 window_blocks=W)
         torch.cuda.synchronize()
@@ -693,9 +816,13 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
         n_win = -(-nb // W)
         per_window = synth_cuda.kernel_launches(level, rows, W)
         check(sum(per_window.values()) == 1
-              and launches == expected(synth_cuda, per_window, n_win),
-              f"{what} stream: launches {launches}, expected {per_window} "
-              f"for each of {n_win} windows")
+              and launches == expected(synth_cuda, per_window, n_win)
+              and dict(unpack_cuda.launches)
+              == unpack_expected(unpack_cuda, n_win),
+              f"{what} stream: launches {launches} {unpack_cuda.launches}, "
+              f"expected {per_window} and one unpack call for each of "
+              f"{n_win} windows")
+        launches |= unpack_cuda.launches
         _stream_equal(pcm, meta, h, f"{what} stream")
         print(f"phase 6: {what} stream {level}/{rows} x {nb} blocks, "
               f"W={W}: equal to decode_corpus_host; launches {launches}, "
@@ -723,7 +850,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card) -> dict:
     print("phase 6: stale-amp-table stream: host fallback equal to "
           "decode_corpus_host (full-file and windowed); ValueError from a "
           "read()-only source")
-    return {"launches": path_launches, "per_shape": per_shape, "data": data}
+    return {"launches": path_launches, "per_shape": per_shape}
 
 
 def phase6_carry(torch, synth_cuda, synth_torch, dev) -> None:
@@ -782,11 +909,19 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
                   and (h.pcm is None or np.array_equal(g.pcm, h.pcm)),
                   f"{what}: file {h.index} PCM differs from the host decode")
 
+    from libacm_tpu_torch.ops import unpack_cuda
+
     twice = [torch.device("cuda", 0)] * 2
     synth_cuda.reset_launches()
+    unpack_cuda.reset_launches()
     dc = corpus.decode_corpus_device(files, devices=twice)
     dc.block_until_ready()
     launches = dict(synth_cuda.launches)
+    check(dict(unpack_cuda.launches)
+          == unpack_expected(unpack_cuda, len(dc._buckets)),
+          f"devices=[cuda:0, cuda:0]: unpack launches {unpack_cuda.launches} "
+          f"for {len(dc._buckets)} groups")
+    launches |= unpack_cuda.launches
     check_results(dc, "devices=[cuda:0, cuda:0]")
     print(f"phase 6: sharded corpus over [cuda:0, cuda:0]: "
           f"{len(dc._buckets)} groups, checksum {checksum3:#010x} equal to "
@@ -1059,8 +1194,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from libacm_tpu_torch import testing
-    from libacm_tpu_torch.ops import synth_cuda, synth_torch
-    from libacm_tpu_torch.parallel import corpus
+    from libacm_tpu_torch.ops import synth_cuda, synth_torch, unpack_cuda
+    from libacm_tpu_torch.parallel import build_index, corpus
     from libacm_tpu_torch.scan import native
 
     t_all = time.perf_counter()
@@ -1085,22 +1220,39 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     scanner_ok: list[bool] = []
     th = threading.Thread(target=lambda: scanner_ok.append(native.available()))
-    # the corpus is encoded (pure Python and numpy) while the compilers
-    # run in their own processes
+    # one nvcc per CUDA source, all started together
+    unpack_built: list = []
+    tu = threading.Thread(target=lambda: unpack_built.append(
+        (unpack_cuda.build(), time.perf_counter())))
+    # the corpus and phase 6's long stream are encoded (pure Python and
+    # numpy) while the compilers run in their own processes
     encoded: list = []
-    enc = threading.Thread(target=lambda: encoded.append(
-        (make_corpus(testing), time.perf_counter())))
+
+    def encode() -> None:
+        files = make_corpus(testing)
+        t_files = time.perf_counter()
+        stream = long_stream(testing, build_index, STREAM_SEED,
+                             STREAM_BLOCKS, STREAM_DISTINCT)
+        encoded.append((files, t_files, stream,
+                        time.perf_counter() - t_files))
+
+    enc = threading.Thread(target=encode)
     t0 = time.perf_counter()
     th.start()
+    tu.start()
     enc.start()
     so, ptxas = synth_cuda.build()
     t_nvcc = time.perf_counter() - t0
+    tu.join()
     th.join()
     t_builds = time.perf_counter() - t0
     check(scanner_ok == [True], "the port's C++ scanner did not build")
-    print(f"phase 1: built {so.name} (nvcc {t_nvcc:.1f} s) and the scanner "
-          f"({t_builds:.1f} s for both)")
-    for line in ptxas.splitlines():
+    check(len(unpack_built) == 1, "the unpack kernel did not build")
+    (so_u, ptxas_u), t_u = unpack_built[0]
+    print(f"phase 1: built {so.name} (nvcc {t_nvcc:.1f} s), {so_u.name} "
+          f"(nvcc {t_u - t0:.1f} s) and the scanner ({t_builds:.1f} s for "
+          "all)")
+    for line in (ptxas + ptxas_u).splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
@@ -1132,28 +1284,47 @@ def main() -> int:
               f"{err} (tolerance 0)")
         check(err == 0, f"kernel disagrees with plain at {level}/{rows}")
     check(all(parity_n.values()), f"a kernel was not exercised: {parity_n}")
+    # the unpack kernel: the synthetic edges and random wires now, the
+    # wires of the corpus, a stream window and random access once encoded
+    unpack_n = unpack_parity(torch, unpack_cuda, synth_torch, "edges", [
+        {**w, "blob": torch.from_numpy(w["blob"]).to(dev)}
+        for w in map(edge_wire, UNPACK_EDGES)])
+    unpack_n += unpack_parity(torch, unpack_cuda, synth_torch, "random", [
+        {**w, "blob": torch.from_numpy(w["blob"]).to(dev)}
+        for w in map(random_wire, UNPACK_RANDOM)])
+    print(f"phase 2: unpack: {len(UNPACK_EDGES)} synthetic edges and "
+          f"{len(UNPACK_RANDOM)} random wires equal to the plain version "
+          f"(tolerance 0), {unpack_n} launches")
+    enc.join()
+    check(len(encoded) == 1, "the corpus was not encoded")
+    files, t_enc, stream_data, t_stream = encoded[0]
+    path_wires = phase2_path_wires(torch, corpus, files, stream_data)
+    for what, wires in path_wires.items():
+        n = unpack_parity(torch, unpack_cuda, synth_torch, what, wires)
+        unpack_n += n
+        print(f"phase 2: unpack: {len(wires)} {what} wires equal to the "
+              f"plain version (tolerance 0), {n} launches")
 
     phase_done("phase 2")
 
     # -- 3. main path at real size ------------------------------------------
-    enc.join()
-    check(len(encoded) == 1, "the corpus was not encoded")
-    files, t_enc = encoded[0]
     print(f"phase 3: encoded {len(files)} files "
           f"({sum(map(len, files)) / 1e6:.1f} MB) in {t_enc - t0:.1f} s, "
-          "beside the builds")
+          f"and the long stream in {t_stream:.1f} s, beside the builds")
     synth_cuda.reset_launches()
+    unpack_cuda.reset_launches()
     t0 = time.perf_counter()
     dc = corpus.decode_corpus_device(files, device="cuda")
     dc.block_until_ready()
     t_first = time.perf_counter() - t0
     main_launches = dict(synth_cuda.launches)
+    main_unpack = dict(unpack_cuda.launches)
     samples = dc.summary.samples
     shapes = sorted({(b.level, b.rows, b.pcm.shape[0], b.pcm.shape[1])
                      for b in dc._buckets})
     print(f"phase 3: decode_corpus_device: {samples} samples, "
-          f"{len(dc._buckets)} chunks, launches {main_launches}, "
-          f"first run {t_first:.3f} s {card}")
+          f"{len(dc._buckets)} chunks, launches {main_launches} "
+          f"{main_unpack}, first run {t_first:.3f} s {card}")
     main_kernels = path_kernels(synth_cuda, [(lv, rw, nb) for lv, rw, _, nb
                                              in shapes])
     check(main_kernels == set(CORPUS_KERNELS),
@@ -1161,6 +1332,11 @@ def main() -> int:
     for name_, n_ in main_launches.items():
         check((n_ > 0) == (name_ in main_kernels),
               f"main path launched {name_} {n_} times")
+    # one unpack call (three kernels) a chunk, beside its synthesis launch
+    check(main_unpack == unpack_expected(unpack_cuda, len(dc._buckets))
+          and sum(main_launches.values()) == len(dc._buckets),
+          f"main path: unpack launches {main_unpack} for "
+          f"{len(dc._buckets)} chunks")
     t0 = time.perf_counter()
     host = corpus.decode_corpus_host(files, workers=os.cpu_count() or 1)
     t_host = time.perf_counter() - t0
@@ -1232,12 +1408,32 @@ def main() -> int:
         del k, v, w
     check(set(kern_rows) == main_kernels,
           "a kernel of the main path has no shape to time")
+    # the unpack at each corpus geometry's largest chunk (the first, with
+    # the most samples, is its row of the main path), a stream window and
+    # random-access segments of 8 and 32 blocks, on the wires of phase 2
+    unpack_at = unpack_shapes(path_wires, STREAM_WINDOWS[0])
+    unpack_rows = bench_torch.unpack_rows(torch, unpack_at,
+                                          {"corpus": main_unpack}, card)
+    smoke_path = {"corpus": "corpus", "random_access": "random_access",
+                  f"stream_window_{STREAM_WINDOWS[0]}": "stream_windows"}
+    for (_, path, _), r in zip(unpack_at, unpack_rows):
+        r["path"] = smoke_path[path]  # the bench's path, by the smoke's name
+        print(f"phase 4: {r['name']}, {r['wire_bytes']} wire bytes: kernel "
+              f"{r['ms']:.6f} ms ({r['cold_l2_ms']:.6f} ms with L2 flushed), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), {r['bound_share']:.1%} of bound {card}")
+    kern_rows[UNPACK_ROUTE] = dict(
+        unpack_rows.pop(0), name=UNPACK_ROUTE,
+        parity=f"bit-equal on {unpack_n // 3} wires")
+    unpack_path_rows = [r for r in unpack_rows if r["path"] != "corpus"]
+    unpack_rows = [r for r in unpack_rows if r["path"] == "corpus"]
+    del path_wires
 
     phase_done("phase 4")
 
     # -- 5. reference API on the card ---------------------------------------
     mix_files = mix_class_firsts(files) + [files[-5]]  # + a bit-flipped one
-    paths = {"corpus": main_launches}
+    paths = {"corpus": main_launches | main_unpack}
     paths["stream"] = phase5_stream(torch, synth_cuda, mix_files, card)
     paths["random_access"] = phase5_random_access(torch, synth_cuda, files,
                                                    card)
@@ -1251,7 +1447,8 @@ def main() -> int:
     phase_done("phase 5")
 
     # -- 6. device lists, windows, processes --------------------------------
-    st6 = phase6_stream(torch, synth_cuda, corpus, testing, "cuda", card)
+    st6 = phase6_stream(torch, synth_cuda, corpus, testing, "cuda", card,
+                        stream_data, t_stream)
     paths["stream_windows"] = st6["launches"]
     phase6_carry(torch, synth_cuda, synth_torch, dev)
     sh6 = phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
@@ -1265,17 +1462,27 @@ def main() -> int:
                           card)
     paths["dense_route"] = dense7["launches"]
     phase_done("phase 7 (dense route)")
-    art = phase7_bench(files, st6["data"], checksum3)
+    art = phase7_bench(files, stream_data, checksum3)
     paths["bench"] = {
-        kernel: sum(n[kernel] for n in art["device_launches"].values())
-        for kernel in main_launches}
+        kernel: sum(n.get(kernel, 0) for n in art["device_launches"].values())
+        for kernel in main_launches | main_unpack}
     phase_done("phase 7 (bench)")
+
+    def by_path(route: str) -> dict:
+        return {p: sum(n.get(k, 0) for k in route.split("+"))
+                for p, n in paths.items()}
+
     for route, row in kern_rows.items():
-        row["launches_by_path"] = {p: n[route] for p, n in paths.items()}
+        row["launches_by_path"] = by_path(route)
+    for row in unpack_path_rows:
+        p = row["path"]
+        row["launches"] = by_path(UNPACK_ROUTE)[p]
+        row["launches_by_path"] = {p: row["launches"]}
+        check(row["launches"] > 0, f"{row['name']}: no unpack launch on {p}")
     rows67 = path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
                               st6, sh6, dense7)
     print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]
-                      + rows67 + rows5}))
+                      + unpack_rows + unpack_path_rows + rows67 + rows5}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ Counterpart of `libacm_tpu/ops/packing.py`. Two wire formats:
   class-family bit streams plus width nibbles and a 2-bit class map.
 
 The unpack functions are tensor ops that run on the wire's device; their
-results are bit-identical to the dense coefficients.
+results are bit-identical to the dense coefficients. On a card the
+per-column wire is unpacked by the CUDA kernel of `ops/unpack_cuda.py`
+(`csrc/unpack.cu`); `unpack_columns` is its plain version, which the CPU
+runs and the tests and `chip_smoke.py` hold the kernel to.
 """
 
 from __future__ import annotations
@@ -130,7 +133,9 @@ def unpack_columns(
         v = ((u16[bit>>4] | u16[(bit>>4)+1] << 16) >> (bit & 15)) & mask
 
     (bit&15) + w <= 31, so the 32-bit window always covers the value.
-    Offsets are int64 here, so no stream length limit applies.
+    Offsets are int64 here, so no stream length limit applies. The plain
+    version of the CUDA unpack kernel (ops/unpack_cuda.py), which computes
+    the same ordinals, widths, offsets and clamped word reads.
     """
     dev = cls_flat.device
     n = cls_flat.shape[0]

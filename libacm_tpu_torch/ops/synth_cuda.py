@@ -112,8 +112,8 @@ def _nvcc() -> str:
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.access(cand, os.X_OK):
             return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA synthesis kernel cannot be "
-                       "built (set CUDA_HOME)")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME)")
 
 
 def build_dir() -> pathlib.Path:
@@ -131,10 +131,17 @@ def build() -> tuple[pathlib.Path, str]:
     Returns (shared object path, nvcc's -Xptxas -v report; empty when the
     library was already built).
     """
-    src = _SRC.read_bytes()
+    return compile_source(_SRC, "synth")
+
+
+def compile_source(path: pathlib.Path, stem: str) -> tuple[pathlib.Path, str]:
+    """Compile one CUDA source for sm_90a into build_dir() as
+    `<stem>-<source hash>.so` (cached by that hash): (shared object,
+    nvcc's -Xptxas -v report; empty when it was already built)."""
+    src = path.read_bytes()
     tag = hashlib.sha256(src).hexdigest()[:16]
     out_dir = build_dir()
-    so = out_dir / f"synth-{tag}.so"
+    so = out_dir / f"{stem}-{tag}.so"
     if so.exists():
         return so, ""
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -143,7 +150,7 @@ def build() -> tuple[pathlib.Path, str]:
         tmp_path = pathlib.Path(tmp.name)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp_path), str(_SRC)]
+           "-o", str(tmp_path), str(path)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         tmp_path.unlink(missing_ok=True)

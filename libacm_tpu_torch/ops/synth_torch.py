@@ -225,7 +225,8 @@ def unpack_cols(
 ) -> torch.Tensor:
     """Coefficients int16 [batch, nb, rows, cols] from the exact-width
     per-column wire (scanner v2): ops.packing.unpack_columns as tensor ops
-    on the wire's device."""
+    on the wire's device. With _bytes_le, the plain version of the CUDA
+    unpack kernel (ops/unpack_cuda.py, through unpack_cols_blob_plain)."""
     from .packing import unpack_columns
 
     cols = 1 << level
@@ -290,6 +291,7 @@ def _bytes_le(b: torch.Tensor, n: int) -> torch.Tensor:
     Byte math rather than a dtype view: explicit endianness, and no
     alignment constraint on the blob slice. 4-byte values keep their
     two's-complement bit pattern (int32), 2-byte values are unsigned.
+    Part of the CUDA unpack kernel's plain version (unpack_cols_blob_plain).
     """
     parts = b.reshape(-1, n).to(torch.int64)
     u = parts[:, 0]
@@ -312,8 +314,29 @@ def unpack_cols_blob(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """(k int16 [batch, nb, rows, cols], vals int32 [batch, nb], the
     blob's wrap0 int32 [batch, 2*cols-2] or None) from ONE coalesced wire
-    blob, sliced at the offsets of cols_blob_layout. vals (uint16) and
-    wrap0 (int32) are reassembled from little-endian bytes."""
+    blob, by the blob's device: the CUDA unpack kernel on a card
+    (ops/unpack_cuda.py, which launches or raises), the plain version
+    (unpack_cols_blob_plain) on the CPU; any other device raises."""
+    from .unpack_cuda import unpack_cols_blob as kernel_fn
+
+    return kernel_fn(blob, level=level, rows=rows, batch=batch, nb=nb,
+                     lens=lens, has_wrap=has_wrap)
+
+
+def unpack_cols_blob_plain(
+    blob: torch.Tensor,  # uint8 [total]: all wire sections coalesced
+    *,
+    level: int,
+    rows: int,
+    batch: int,
+    nb: int,
+    lens: tuple[int, int, int, int, int, int],
+    has_wrap: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """unpack_cols_blob as tensor ops on the blob's device: the plain
+    version the CUDA unpack kernel is held to. The sections are sliced at
+    the offsets of cols_blob_layout; vals (uint16) and wrap0 (int32) are
+    reassembled from little-endian bytes."""
     cols = 1 << level
     secs, total = cols_blob_layout(level, batch, nb, lens, has_wrap=has_wrap)
     if tuple(blob.shape) != (total,):
@@ -343,8 +366,10 @@ def synth_pcm_cols_blob(
 
     The host packs a chunk's whole wire into a single buffer so it crosses
     to the device in one copy; the sections are sliced back out here
-    (unpack_cols_blob). An explicit wrap0 tensor replaces the blob's wrap
-    section, which must then be absent.
+    (unpack_cols_blob: the CUDA unpack kernel on a card, its plain version
+    on the CPU). `backend` picks the filterbank (synthesize). An explicit
+    wrap0 tensor replaces the blob's wrap section, which must then be
+    absent.
     """
     k, vals, blob_wrap = unpack_cols_blob(
         blob, level=level, rows=rows, batch=batch, nb=nb, lens=lens,

@@ -4,7 +4,8 @@ The port imports torch, never jax and nothing of libacm_tpu; the host
 layers it shares with the JAX package are byte-identical copies, which
 keeps the two scanners (and their oracle) in lockstep. The probe drives
 the corpus (one device and a device list), stream, stream-device,
-distributed, random-access and CLI surfaces in a fresh process, imports
+distributed, random-access and CLI surfaces and the unpack kernel's
+wrapper (ops/unpack_cuda.py, on a CPU blob) in a fresh process, imports
 the encoder, ingest and profiling modules, the port's examples, entry
 file, card tools, chip_smoke.py and bench_torch.py, runs the entry file's
 dry run and the bench's CPU rehearsal (`--device cpu --scale 0.02`), then
@@ -51,6 +52,15 @@ _PROBE = textwrap.dedent("""
         assert cli.main(["-i", str(fx)]) == 0
     assert "A:7/16" in out.getvalue()
     assert encode.encode_pcm and ingest.iter_pcm and profiling.trace
+
+    import torch
+    from libacm_tpu_torch.ops import synth_torch, unpack_cuda
+    assert unpack_cuda.unpack_launches(7, 1, 8, True)
+    blob = torch.zeros(synth_torch.cols_blob_layout(3, 1, 2, (0,) * 6)[1],
+                       dtype=torch.uint8)
+    k, vals, w0 = unpack_cuda.unpack_cols_blob(
+        blob, level=3, rows=4, batch=1, nb=2, lens=(0,) * 6, has_wrap=True)
+    assert k.shape == (1, 2, 4, 8) and not k.any() and w0.shape == (1, 14)
 
     from libacm_tpu_torch.parallel import (decode_stream_device, distributed,
                                            make_mesh, shard_manifest)

@@ -370,3 +370,148 @@ def test_corpus_sharded_over_one_card_twice_matches_one_device():
                 assert g.pcm is None
             else:
                 np.testing.assert_array_equal(h.pcm, g.pcm)
+
+
+# -- the cols-wire unpack kernel (csrc/unpack.cu) -----------------------------
+
+
+def _bench():
+    import sys
+
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import bench_torch
+
+    return bench_torch
+
+
+def _unpack_equal(blob, kw):
+    """The kernel on a card blob ≡ the plain version on the same blob (on
+    the card and on the CPU), with the launches of one call."""
+    from libacm_tpu_torch.ops import unpack_cuda as uc
+
+    uc.reset_launches()
+    got = st.unpack_cols_blob(blob, **kw)
+    torch.cuda.synchronize()
+    assert dict(uc.launches) == {
+        k: uc.unpack_launches(kw["level"], kw["batch"], kw["nb"],
+                              kw["has_wrap"]).get(k, 0) for k in uc.launches}
+    for want in (st.unpack_cols_blob_plain(blob, **kw),
+                 st.unpack_cols_blob_plain(blob.cpu(), **kw)):
+        for g, w, name in zip(got, want, ("k", "vals", "wrap0")):
+            assert (g is None) == (w is None), name
+            if g is not None:
+                assert g.dtype == w.dtype and g.shape == w.shape, name
+                assert g.is_contiguous() and g.device == blob.device, name
+                assert torch.equal(g.cpu(), w.cpu()), name
+
+
+@pytest.mark.parametrize("name", [
+    "family absent (payload < 2 bytes)", "empty width stream",
+    "width stream shorter than the ordinals (clamp)",
+    "payload shorter than the columns (clamped words)",
+    "16-bit values in the last word", "sections at odd byte offsets",
+    "padding codes at level 0", "padding codes at level 1", "rows == 1",
+    "level 0, rows 2048", "N not a multiple of a tile",
+    "a tile with no non-zero column", "has_wrap false",
+    "several tiles of several width tiles"])
+def test_unpack_kernel_matches_plain_on_edges(name):
+    dev = _card()
+    wire = _bench().edge_wire(name)
+    _unpack_equal(torch.from_numpy(wire["blob"]).to(dev),
+                  _bench().wire_args(wire))
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_unpack_kernel_matches_plain_on_random_wires(seed):
+    """Random geometries and section lengths from a numpy seed: natural,
+    short, empty or single-byte payloads and width streams."""
+    dev = _card()
+    wire = _bench().random_wire(1000 + seed)
+    _unpack_equal(torch.from_numpy(wire["blob"]).to(dev),
+                  _bench().wire_args(wire))
+
+
+@pytest.mark.parametrize("level,rows,nb", [
+    (7, 16, 40), (4, 40, 30), (10, 4, 12), (0, 2048, 5), (2, 1, 60),
+    (1, 4095, 2), (12, 2, 3)])
+def test_unpack_kernel_on_the_corpus_wires(level, rows, nb):
+    """The scanner's chunk wires, as the corpus path makes them: each
+    held to the plain version; the decode equal to the host decoder, with
+    three unpack launches a chunk."""
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.ops import unpack_cuda as uc
+    from libacm_tpu_torch.parallel import (decode_corpus_device,
+                                           decode_corpus_host)
+
+    _card()
+    rng = np.random.default_rng(level * 11 + rows)
+    files = [testing.speech_acm_bytes(rng, level=level, rows=rows,
+                                      n_blocks=nb) for _ in range(3)]
+    files.append(testing.random_acm_bytes(rng, level=level, rows=rows,
+                                          n_blocks=nb, max_pwr=12))
+    files.append(files[0][: len(files[0]) * 2 // 3])
+    uc.reset_launches()
+    with _bench().capture_wires() as wires:
+        dc = decode_corpus_device(files, device="cuda", chunk_files=2)
+        dc.block_until_ready()
+    assert len(wires) >= 3  # chunks of at most two files
+    assert dict(uc.launches) == {k: len(wires) for k in uc.launches}
+    for h, g in zip(decode_corpus_host(files), dc.to_results()):
+        assert (h.status, h.filler_words) == (g.status, g.filler_words)
+        if h.pcm is None:
+            assert g.pcm is None
+        else:
+            np.testing.assert_array_equal(h.pcm, g.pcm)
+    for wire in wires:
+        assert wire["blob"].device.type == "cuda"
+        _unpack_equal(wire["blob"], _bench().wire_args(wire))
+
+
+def test_unpack_kernel_launches_per_window_and_segment():
+    """A stream window: one copy, three unpack launches and one synthesis
+    launch; a random-access segment likewise."""
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.ops import unpack_cuda as uc
+    from libacm_tpu_torch.parallel import (build_index, decode_stream_device,
+                                           read_segment)
+
+    _card()
+    data = testing.speech_acm_bytes(np.random.default_rng(4), level=7,
+                                    rows=16, n_blocks=100)
+    uc.reset_launches()
+    sc.reset_launches()
+    decode_stream_device(data, device="cuda", window_blocks=25)
+    torch.cuda.synchronize()
+    assert dict(uc.launches) == {k: 4 for k in uc.launches}
+    assert sc.launches["synth_fused"] == 4
+    idx = build_index(data)
+    uc.reset_launches()
+    got = read_segment(data, idx, 5000, 3000, device="cuda")
+    assert dict(uc.launches) == {k: 1 for k in uc.launches}
+    np.testing.assert_array_equal(
+        got, read_segment(data, idx, 5000, 3000, backend="host"))
+
+
+def test_unpack_kernel_rejects_bad_input():
+    from libacm_tpu_torch.ops import unpack_cuda as uc
+
+    dev = _card()
+    wire = _bench().edge_wire("rows == 1")
+    blob = torch.from_numpy(wire["blob"]).to(dev)
+    kw = _bench().wire_args(wire)
+    uc.reset_launches()
+    with pytest.raises(ValueError, match="wire blob must be uint8"):
+        st.unpack_cols_blob(blob[:-1], **kw)
+    with pytest.raises(ValueError, match="wire blob must be uint8"):
+        st.unpack_cols_blob(blob.to(torch.int16), **kw)
+    with pytest.raises(ValueError, match="no unpack kernel for device meta"):
+        st.unpack_cols_blob(blob.to("meta"), **kw)
+    odd = dict(kw, lens=(3,) + tuple(kw["lens"][1:]))
+    n = st.cols_blob_layout(kw["level"], kw["batch"], kw["nb"], odd["lens"],
+                            has_wrap=True)[1]
+    with pytest.raises(ValueError, match="even length"):
+        st.unpack_cols_blob(torch.zeros(n, dtype=torch.uint8, device=dev),
+                            **odd)
+    assert sum(uc.launches.values()) == 0

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card parity sweep of the CUDA synthesis kernel: every level, every
-route, with a zero and a non-zero carry-in, bit equality required.
+route, with a zero and a non-zero carry-in, bit equality required; and of
+the cols-wire unpack kernel at every level.
 
     python3 tools/torch_parity_sweep.py [--deadline-s=S] [LEVEL ...]
 
@@ -14,8 +15,14 @@ bit-equal to the plain torch version on the same tensors. The CPU tests
 cover the plain version and a model of the kernel's schedule only; this
 pins what nvcc built for every level the format allows.
 
+For each level the unpack kernel (ops/unpack_cuda.py) also takes one
+synthetic wire (bench_torch.synthetic_wire: random class map, widths and
+payload; the wrap0 section on even levels) and is held bit-equal to its
+plain version; its line starts with "unpack".
+
 Prints the card (`nvidia-smi` name and power limit), one flushed line per
-case (CASES_PER_LEVEL for each level) and a `SWEEP RESULT` line; exits 1
+synthesis case (CASES_PER_LEVEL for each level) and per unpack case, and a
+`SWEEP RESULT` line; exits 1
 on a mismatch and 2 without a card. With --deadline-s the sweep stops
 BETWEEN levels once S seconds have passed and reports `SWEEP RESULT:
 PARTIAL ok=<levels>`, so that a caller with a time limit (bench_torch.py)
@@ -43,7 +50,8 @@ def main(argv) -> int:
         print("torch_parity_sweep: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-    from libacm_tpu_torch.ops import synth_cuda, synth_torch
+    import bench_torch
+    from libacm_tpu_torch.ops import synth_cuda, synth_torch, unpack_cuda
 
     t_start = time.monotonic()
     deadline_s = None
@@ -103,6 +111,19 @@ def main(argv) -> int:
                       flush=True)
                 cases += 1
                 failures += 0 if ok else 1
+        wire = bench_torch.synthetic_wire(level, level, base, 2, 8,
+                                          has_wrap=level % 2 == 0)
+        kw = bench_torch.wire_args(wire)
+        blob = torch.from_numpy(wire["blob"]).to(dev)
+        got = unpack_cuda.unpack_cols_blob(blob, **kw)
+        want = synth_torch.unpack_cols_blob_plain(blob, **kw)
+        torch.cuda.synchronize()
+        ok = bench_torch.unpack_max_err(torch, got, want) == 0
+        print(f"unpack level {level:2d} rows {base:4d} "
+              f"{'wrap0' if kw['has_wrap'] else 'no wrap0':8s}: "
+              f"{'OK' if ok else 'MISMATCH'}", flush=True)
+        cases += 1
+        failures += 0 if ok else 1
         done.append(level)
     if failures:
         print(f"SWEEP RESULT: FAIL mismatch={failures} of {cases}")

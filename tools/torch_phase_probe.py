@@ -9,8 +9,9 @@ bench corpus mix (bench_torch.make_corpus) twice with the pipeline's two
 halves wrapped: for every chunk it prints the host time of the scan
 (calling thread) and, on the submitter thread, of the coalesce, the copy to
 the card (waited for, so that it is not charged to the next step), the
-unpack's enqueue (the eager torch ops of ops.synth_torch.unpack_cols_blob),
-the kernel launch (ops.synth_torch.synthesize -> the CUDA kernel) and the
+unpack's enqueue (ops.synth_torch.unpack_cols_blob: the CUDA unpack
+kernels on a card, the eager torch ops on the CPU), the synthesis launch
+(ops.synth_torch.synthesize -> the CUDA kernel) and the
 wait for the device to drain; then the round's wall, summary.scan_s and
 checksum. Waiting for the copy and the drain serializes what the real
 pipeline overlaps, so an unprobed decode is timed beside each round.
