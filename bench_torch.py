@@ -766,6 +766,13 @@ UNPACK_EDGES = {
         (12, 2, 6, 1, 600, {"cls": _zero_first_tile}),
     "has_wrap false": (13, 7, 4, 2, 12, {"has_wrap": False}),
     "several tiles of several width tiles": (14, 10, 3, 2, 5, {}),
+    "a span that ends at the stream's last word": (15, 5, 16, 2, 7, {}),
+    "ordinals past 2L at a width-tile boundary":
+        (16, 10, 2, 3, 3, {"wid": (1024, 1024, 3)}),
+    "a 1-byte payload among many tiles":
+        (17, 7, 16, 2, 40, {"pay": (None, 1, None)}),
+    "a width stream of 40 tiles": (18, 7, 16, 2, 40,
+                                   {"wid": (40000, None, None)}),
 }
 
 

@@ -415,7 +415,10 @@ def _unpack_equal(blob, kw):
     "padding codes at level 0", "padding codes at level 1", "rows == 1",
     "level 0, rows 2048", "N not a multiple of a tile",
     "a tile with no non-zero column", "has_wrap false",
-    "several tiles of several width tiles"])
+    "several tiles of several width tiles",
+    "a span that ends at the stream's last word",
+    "ordinals past 2L at a width-tile boundary",
+    "a 1-byte payload among many tiles", "a width stream of 40 tiles"])
 def test_unpack_kernel_matches_plain_on_edges(name):
     dev = _card()
     wire = _bench().edge_wire(name)
@@ -433,13 +436,45 @@ def test_unpack_kernel_matches_plain_on_random_wires(seed):
                   _bench().wire_args(wire))
 
 
+@pytest.mark.parametrize("seed", range(24))
+def test_unpack_kernel_matches_plain_on_the_smoke_random_wires(seed):
+    """chip_smoke.py's UNPACK_RANDOM wires (bench_torch.random_wire)."""
+    dev = _card()
+    wire = _bench().random_wire(seed)
+    _unpack_equal(torch.from_numpy(wire["blob"]).to(dev),
+                  _bench().wire_args(wire))
+
+
+@pytest.mark.parametrize("tiles", ["default", "full"])
+def test_unpack_kernel_race_wire(tiles, monkeypatch):
+    """A wire of 2,000 column tiles (10/4, [10, 400]) held to the plain
+    version, then decoded 50 times in a row, each equal to the first: a
+    look-back race would show as a difference. "full": tiles of
+    TILE_VALUES values at level 0, rows 2048 (130 tiles of 16 blocks)."""
+    from libacm_tpu_torch.ops import unpack_cuda as uc
+
+    dev = _card()
+    if tiles == "full":
+        monkeypatch.setattr(uc, "TARGET_TILES", 0)
+        wire = _bench().synthetic_wire(98, 0, 2048, 5, 416)
+    else:
+        wire = _bench().synthetic_wire(99, 10, 4, 10, 400)
+    blob, kw = torch.from_numpy(wire["blob"]).to(dev), _bench().wire_args(wire)
+    assert uc.plan(**kw)["nct"] == (2000 if tiles == "default" else 130)
+    _unpack_equal(blob, kw)
+    first = uc.unpack_cols_blob(blob, **kw)
+    for _ in range(50):
+        got = uc.unpack_cols_blob(blob, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got[:2], first[:2]))
+
+
 @pytest.mark.parametrize("level,rows,nb", [
     (7, 16, 40), (4, 40, 30), (10, 4, 12), (0, 2048, 5), (2, 1, 60),
     (1, 4095, 2), (12, 2, 3)])
 def test_unpack_kernel_on_the_corpus_wires(level, rows, nb):
     """The scanner's chunk wires, as the corpus path makes them: each
     held to the plain version; the decode equal to the host decoder, with
-    three unpack launches a chunk."""
+    one unpack launch a chunk."""
     from libacm_tpu_torch import testing
     from libacm_tpu_torch.ops import unpack_cuda as uc
     from libacm_tpu_torch.parallel import (decode_corpus_device,
@@ -470,8 +505,12 @@ def test_unpack_kernel_on_the_corpus_wires(level, rows, nb):
 
 
 def test_unpack_kernel_launches_per_window_and_segment():
-    """A stream window: one copy, three unpack launches and one synthesis
-    launch; a random-access segment likewise."""
+    """A stream window: one copy, one unpack launch and one synthesis
+    launch (and one fill and one cat a decode); a random-access segment:
+    a copy in, the unpack, the synthesis and a copy out, under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
     from libacm_tpu_torch import testing
     from libacm_tpu_torch.ops import unpack_cuda as uc
     from libacm_tpu_torch.parallel import (build_index, decode_stream_device,
@@ -480,16 +519,32 @@ def test_unpack_kernel_launches_per_window_and_segment():
     _card()
     data = testing.speech_acm_bytes(np.random.default_rng(4), level=7,
                                     rows=16, n_blocks=100)
+    decode_stream_device(data, device="cuda", window_blocks=25)  # warm
+    idx = build_index(data)
+    read_segment(data, idx, 5000, 3000, device="cuda")
+    torch.cuda.synchronize()
+
+    def device_ops(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
     uc.reset_launches()
     sc.reset_launches()
-    decode_stream_device(data, device="cuda", window_blocks=25)
-    torch.cuda.synchronize()
-    assert dict(uc.launches) == {k: 4 for k in uc.launches}
+    ops = device_ops(lambda: decode_stream_device(data, device="cuda",
+                                                  window_blocks=25))
+    assert dict(uc.launches) == {"unpack": 4}
     assert sc.launches["synth_fused"] == 4
-    idx = build_index(data)
+    assert ops == 0 or ops <= 3 * 4 + 2  # 0: the profiler saw no device
     uc.reset_launches()
-    got = read_segment(data, idx, 5000, 3000, device="cuda")
-    assert dict(uc.launches) == {k: 1 for k in uc.launches}
+    got = []
+    ops = device_ops(lambda: got.append(read_segment(
+        data, idx, 5000, 3000, device="cuda")))
+    got = got[0]
+    assert dict(uc.launches) == {"unpack": 1}
+    assert ops == 0 or ops <= 4
     np.testing.assert_array_equal(
         got, read_segment(data, idx, 5000, 3000, backend="host"))
 

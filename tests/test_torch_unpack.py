@@ -68,115 +68,290 @@ def _jax_unpack(blob, level, rows, batch, nb, lens, has_wrap):
 
 # -- a model of csrc/unpack.cu ------------------------------------------------
 
+#: the model's global memory: random bytes around the blob, which starts
+#: `align` bytes past a 16-byte boundary (a blob that is a view)
+PAD = 32
+#: the status words' epoch in the model, and the ticket count before it
+#: (the 32-bit counter wraps during the call)
+EPOCH, TICKET0 = 7, (1 << 32) - 5
 
-def _unpack_model(blob, level, rows, batch, nb, lens, has_wrap):
-    """csrc/unpack.cu's three kernels replayed in torch (numpy blob in,
-    k, vals, wrap0 out), at the kernel's tile sizes and launch plan."""
+
+def _status(flag, value):
+    assert 0 <= value < 1 << uc.VBITS
+    return (EPOCH << uc.EPOCH_SHIFT) | (flag << uc.VBITS) | value
+
+
+def _ready(word, need):
+    """(ready, flag, value) of a status word for a reader that needs a
+    flag of at least `need` (1 aggregate, 2 inclusive) in this epoch."""
+    flag = (word >> uc.VBITS) & 3
+    ok = word >> uc.EPOCH_SHIFT == EPOCH and flag >= need
+    return ok, flag, word & ((1 << uc.VBITS) - 1)
+
+
+def _wait(st, i, need):
+    """Generator: yields "wait" until st[i] is ready; returns its value."""
+    while True:
+        ok, _, v = _ready(st[i], need)
+        if ok:
+            return v
+        yield "wait"
+
+
+def _lookback(st, lo, idx):
+    """Generator: the warp's look-back, 32 predecessors a window, nearest
+    first, back to the nearest inclusive word; returns the sum."""
+    excl, end = 0, idx
+    while end > lo:
+        got = []
+        for lane in range(32):
+            p = end - 1 - lane
+            if p < lo:
+                got.append((2, 0))
+                continue
+            while not _ready(st[p], 1)[0]:
+                yield "wait"
+            got.append(_ready(st[p], 1)[1:])
+        inc = [lane for lane, (flag, _) in enumerate(got) if flag == 2]
+        stop = inc[0] if inc else 31
+        excl += sum(v for _, v in got[: stop + 1])
+        if inc:
+            return excl
+        end -= 32
+    return excl
+
+
+def _stage(start, end, pay, plen):
+    """A family's span of stream bits [start, end) in shared memory, as
+    csrc/unpack.cu stages it from a payload of plen bytes at address pay:
+    (a: the stream byte at the buffer's start, 16-byte aligned in memory
+    and rounded down; blen: its bytes, up to 8 past the last word a value
+    reads; nchunk: the 16-byte copies, none past the payload's last
+    16-byte granule; fill: whether bytes past the payload are filled
+    with its last word)."""
+    need_lo, need_hi = (start >> 4) * 2, (end >> 3) + 8
+    a = need_lo - ((pay + need_lo) & 15)
+    blen = (need_hi - a + 15) & ~15
+    copy_hi = min(need_hi, plen)
+    nchunk = -(-(copy_hi - a) // 16) if copy_hi > a else 0
+    return a, blen, nchunk, need_hi > plen
+
+
+def _packed(x, f):
+    return (x >> (FIELD * f)) & ((1 << FIELD) - 1)
+
+
+def _unpack_model(blob, level, rows, batch, nb, lens, has_wrap,
+                  order="ticket", align=0, seed=0):
+    """csrc/unpack.cu's one launch replayed in torch (numpy blob in, k,
+    vals, wrap0 out), at the kernel's plan: CTAs by ticket (width tiles,
+    column tiles, the conversion), status words with epochs (stale words
+    of the last epoch in the buffer), the look-back, NP at each tile's
+    first ordinal, the staged spans with the clamp fill, funnel-shift
+    reads from the 32-bit shared words and 8-element stores into flat k.
+    order="ticket" runs each CTA to its end in ticket order (none may
+    wait); "shuffled" keeps a few CTAs resident and steps a random one,
+    so the look-back resolves in another order of completion."""
     p = uc.plan(level, rows, batch, nb, lens, has_wrap)
-    TC, WT = uc.TC, uc.WT
+    rng = np.random.default_rng(seed)
     cols = 1 << level
     off = [o for o, _ in p["secs"]]
+    ltc = p["ltc"]
+    tc = 1 << ltc
+    n, nct, WT = p["ncols"], p["nct"], uc.WT
+    nwt_all = sum(p["nwt"])
+    mem = np.concatenate([rng.integers(0, 256, PAD + align, dtype=np.uint8),
+                          blob, rng.integers(0, 256, PAD, dtype=np.uint8)])
+    g0 = PAD + align  # the blob's address
     b = torch.from_numpy(blob).to(torch.int64)
-    n, nct = p["ncols"], p["nct"]
     k = torch.full((batch * nb * rows * cols,), -1, dtype=torch.int64)
     written = torch.zeros_like(k)
+    vals = torch.full((batch * nb,), -1, dtype=torch.int64)
+    wrap0 = torch.full((p["nwrap"],), -1, dtype=torch.int64)
 
-    # reduce: column-tile counts per family (padding codes belong to no
-    # column), width tiles' in-tile inclusive prefixes and totals, vals
-    # and wrap0 from bytes
+    # the scratch: word 0 the ticket counter, then width and column words,
+    # stale words of the last epoch among them
+    st = [int(x) for x in rng.integers(0, 1 << 38, 1 + nwt_all + 3 * nct)]
+    st = [((EPOCH - 1) << uc.EPOCH_SHIFT) | (1 << uc.VBITS) | x for x in st]
+    st[0] = TICKET0
+    cst = 1 + nwt_all  # the first column status word
+
     col = torch.arange(n)
     byte = b[off[0] + (col >> level) * p["stride"] + ((col & (cols - 1)) >> 2)]
     code = (byte >> (((col & (cols - 1)) & 3) * 2)) & 3
-    tcnt = torch.zeros((3, nct), dtype=torch.int64)
-    for f in range(3):
-        tcnt[f].index_add_(0, col // TC, (code == f + 1).long())
-    nploc, wsum = [], []
-    for f in range(3):
+
+    def wid_nib(f, o):  # nib(o), the byte index clamped to L-1
         L = lens[3 + f]
-        wid = torch.zeros(p["nwt"][f] * WT // 2, dtype=torch.int64)
-        if p["present"][f]:
-            wid[:L] = b[off[4 + f]: off[4 + f] + L]
-        nib = torch.stack([wid & 15, wid >> 4], -1).reshape(p["nwt"][f], WT)
-        nploc.append(nib.cumsum(1))
-        wsum.append(nib.sum(1))
-    pv = b[off[7]: off[7] + 2 * p["nvals"]].reshape(-1, 2)
-    vals = (pv[:, 0] | pv[:, 1] << 8).to(torch.int32).reshape(batch, nb)
-    wrap0 = None
-    if has_wrap:
-        pw = b[off[8]: off[8] + 4 * p["nwrap"]].reshape(-1, 4)
-        u = pw[:, 0] | pw[:, 1] << 8 | pw[:, 2] << 16 | pw[:, 3] << 24
-        wrap0 = torch.where(u >= 1 << 31, u - (1 << 32), u).to(
-            torch.int32).reshape(batch, 2 * cols - 2)
+        wb = b[off[4 + f] + torch.clamp(o >> 1, max=L - 1)]
+        return (wb >> ((o & 1) * 4)) & 15
 
-    # scan: exclusive prefixes of both kinds of tile totals
-    tpre = tcnt.cumsum(1) - tcnt
-    wpre = [s.cumsum(0) - s for s in wsum]
-
-    def nib_prefix(f, o):  # NP(o), the clamp past 2L included
+    def width_tile(wb):
+        f = 0 if wb < p["nwt"][0] else 1 if wb < p["nwt"][0] + p["nwt"][1] else 2
+        j = wb - p["wbase"][f]
         L = lens[3 + f]
-        nn = 2 * L
-        j = o.clamp(max=nn) - 1
-        jc = j.clamp(min=0)
-        np_ = wpre[f][jc // WT] + nploc[f][jc // WT, jc % WT]
-        last = int(b[off[4 + f] + L - 1])
-        e = (o - nn).clamp(min=0)
-        lo, hi = last & 15, last >> 4
-        np_ = np_ + (e >> 1) * (lo + hi) + (e & 1) * lo
-        return torch.where(o == 0, 0, np_)
+        o = torch.arange(j * WT, min((j + 1) * WT, 2 * L))
+        tot = int(wid_nib(f, o).sum())
+        st[1 + wb] = _status(2 if j == 0 else 1, tot)
+        yield "step"
+        if j:
+            ex = yield from _lookback(st, 1 + p["wbase"][f], 1 + wb)
+            st[1 + wb] = _status(2, ex + tot)
 
-    # values: per CTA (tile t, run y of rows) rank the tile's columns, then
-    # one thread per value over rows [r0, r0 + nr)
-    lcw = min(level, 10)
-    for t in range(nct):
-        c0 = t * TC
-        ncol = min(TC, n - c0)
+    def column_tile(t):
+        c0 = t << ltc
+        ncol = min(tc, n - c0)
         cd = code[c0: c0 + ncol]
         mine = torch.where(cd > 0, 1 << (FIELD * (cd - 1).clamp(min=0)), 0)
+        tot = int(mine.sum())
         rank = mine.cumsum(0) - mine
-        s_w = torch.zeros(ncol, dtype=torch.int64)
-        s_off = torch.zeros(ncol, dtype=torch.int64)
-        s_f = torch.zeros(ncol, dtype=torch.int64)
-        for f in range(3):
-            sel = cd == f + 1
-            if not p["present"][f] or not bool(sel.any()):
-                continue
+        live = [f for f in range(3) if p["present"][f]]
+        for f in live:
+            st[cst + f * nct + t] = _status(2 if t == 0 else 1, _packed(tot, f))
+        yield "step"
+        o0 = {}
+        for f in live:
+            lo = cst + f * nct
+            o0[f] = (yield from _lookback(st, lo, lo + t)) if t else 0
+            if t:
+                st[lo + t] = _status(2, o0[f] + _packed(tot, f))
+        # NP(o0): the width tile before o0's inclusive prefix, the nibbles
+        # before o0 inside its tile, the clamp past 2L
+        np0 = {}
+        mine_f = [f for f in live if _packed(tot, f)]
+        for f in mine_f:
             L = lens[3 + f]
-            o = tpre[f, t] + ((rank[sel] >> (FIELD * f)) & ((1 << FIELD) - 1))
-            wb = b[off[4 + f] + (o >> 1).clamp(max=L - 1)]
-            w = ((wb >> ((o & 1) * 4)) & 15) + 1
-            s_w[sel] = w
-            s_off[sel] = rows * (o + nib_prefix(f, o))
-            s_f[sel] = f
-        for y in range((rows + p["rs"] - 1) // p["rs"]):
-            r0 = y * p["rs"]
-            nr = min(p["rs"], rows - r0)
-            idx = torch.arange(ncol * nr)
-            seg = idx >> lcw
-            r = r0 + seg % nr
-            lc = ((seg // nr) << lcw) + (idx & ((1 << lcw) - 1))
-            g = c0 + lc
-            out = (((g >> level) * rows + r) << level) + (g & (cols - 1))
-            w = s_w[lc]
-            f = s_f[lc]
-            nh = torch.tensor([lens[i] >> 1 for i in range(3)])[f]
-            pay0 = torch.tensor(off[1:4])[f]
-            bit = s_off[lc] + r * w
-            i0 = torch.minimum(bit >> 4, nh - 1).clamp(min=0)
-            i1 = torch.minimum((bit >> 4) + 1, nh - 1).clamp(min=0)
-            hi = b.shape[0] - 1  # gathers of absent columns stay in range
-            h0 = b[(pay0 + 2 * i0).clamp(max=hi)] | b[
-                (pay0 + 2 * i0 + 1).clamp(max=hi)] << 8
-            h1 = b[(pay0 + 2 * i1).clamp(max=hi)] | b[
-                (pay0 + 2 * i1 + 1).clamp(max=hi)] << 8
-            win = h0 | h1 << 16
-            wv = w.clamp(min=1)
-            u = (win >> (bit & 15)) & ((1 << wv) - 1)
-            sign = 1 << (wv - 1)
-            v = torch.where(w > 0, (u ^ sign) - sign, 0)
-            k[out] = v
-            written.index_add_(0, out, torch.ones_like(out))
+            P = min(o0[f], 2 * L)
+            j = P // WT
+            part = int(wid_nib(f, torch.arange(j * WT, P)).sum())
+            excl = (yield from _wait(st, 1 + p["wbase"][f] + j - 1, 2)) if j else 0
+            last = int(b[off[4 + f] + L - 1])
+            e = o0[f] - P
+            np0[f] = excl + part + (e >> 1) * ((last & 15) + (last >> 4)) + (
+                e & 1) * (last & 15)
+        # widths and their in-tile prefix per family (packed)
+        w = torch.zeros(ncol, dtype=torch.int64)
+        for f in mine_f:
+            sel = cd == f + 1
+            w[sel] = wid_nib(f, o0[f] + _packed(rank[sel], f)) + 1
+        wmine = torch.where(w > 0, w << (FIELD * (cd - 1).clamp(min=0)), 0)
+        wtot = int(wmine.sum())
+        wpre = wmine.cumsum(0) - wmine
+        # the spans, staged; bytes past the payload read as its last word
+        smem = rng.integers(0, 256, p["smem"], dtype=np.uint8)
+        span = {}
+        sbase = 0
+        for f in mine_f:
+            start = rows * (o0[f] + np0[f])
+            end = start + rows * _packed(wtot, f)
+            pay, plen = g0 + off[1 + f], lens[f]
+            a, blen, nchunk, _ = _stage(start, end, pay, plen)
+            src = pay + a
+            assert src % 16 == 0  # and the copy stays in the blob's granules
+            assert not nchunk or (src >= g0 & ~15 and src + 16 * nchunk
+                                  <= -(-(g0 + len(blob)) // 16) * 16)
+            smem[sbase: sbase + 16 * nchunk] = mem[src: src + 16 * nchunk]
+            hlast = int(blob[off[1 + f] + plen - 2]) | int(
+                blob[off[1 + f] + plen - 1]) << 8
+            for sb in range(max(plen, a), a + blen):
+                smem[sbase + sb - a] = (hlast >> ((sb & 1) * 8)) & 255
+            span[f] = (start, a, sbase)
+            sbase += blen
+        assert sbase <= p["span"], "spans overflow their shared memory"
+        tab = torch.from_numpy(rng.integers(0, 1 << 32, tc, dtype=np.int64))
+        ent = torch.zeros(ncol, dtype=torch.int64)
+        for f in mine_f:
+            sel = (cd == f + 1) & (w > 0)
+            start, a, sb0 = span[f]
+            s = 8 * sb0 + (start + rows * _packed(wpre[sel], f) - 8 * a)
+            assert bool((s < 1 << 27).all())
+            ent[sel] = (s << 5) | w[sel]
+        tab[:ncol] = ent
+        s32 = torch.from_numpy(smem[: p["span"]].view("<u4").astype(np.int64))
+
+        def value_at(e, r):
+            wv = e & 31
+            s = ((e >> 5) + r * wv) & 0xFFFFFFFF
+            lo, hi = s32[s >> 5], s32[(s >> 5) + 1]
+            win = ((hi << 32 | lo) >> (s & 31)) & 0xFFFFFFFF
+            sh = (32 - wv) & 31
+            v = ((win << sh) & 0xFFFFFFFF)
+            v = torch.where(v >= 1 << 31, v - (1 << 32), v) >> sh
+            return torch.where(wv > 0, v, 0)
+
+        # the values: 8 consecutive elements of the tile's flat k run
+        nel = ncol * rows
+        lsw = min(ltc, level)
+        if lsw >= 3:
+            obase = ((c0 >> level) * rows << level) + (c0 & (cols - 1))
+            i = torch.arange(nel >> 3)  # item: row r of 8 columns, rows fastest
+            gi = (i * p["magic"]) >> 32
+            assert torch.equal(gi, i // rows)
+            r = i - gi * rows
+            bl, c = gi >> (lsw - 3), (gi & ((1 << (lsw - 3)) - 1)) << 3
+            q = bl * rows + r
+            lc = (bl << lsw) + c
+            out = obase + (q << level) + c
+            assert bool((out % 8 == 0).all()), "a store not 16-byte aligned"
+            for j in range(8):
+                k[out + j] = value_at(tab[lc + j], r)
+                written.index_add_(0, out + j, torch.ones_like(out))
+        else:
+            E0 = c0 * rows
+            gi = torch.arange(E0 >> 3, (E0 + nel + 7) >> 3)
+            for j in range(8):
+                e = (gi << 3) - E0 + j
+                e = e[(e >= 0) & (e < nel)]
+                q, c = e >> level, e & (cols - 1)
+                bl = (q * p["magic"]) >> 32
+                r = q - bl * rows
+                k[E0 + e] = value_at(tab[(bl << level) + c], r)
+                written.index_add_(0, E0 + e, torch.ones_like(e))
+
+    def convert(i):
+        pv = b[off[7]: off[7] + 2 * p["nvals"]].reshape(-1, 2)
+        for x in range(i * uc.THREADS, p["nvals"] + p["nwrap"],
+                       p["nvw"] * uc.THREADS):
+            for y in range(x, min(x + uc.THREADS, p["nvals"] + p["nwrap"])):
+                if y < p["nvals"]:
+                    vals[y] = pv[y, 0] | pv[y, 1] << 8
+                else:
+                    q = off[8] + 4 * (y - p["nvals"])
+                    u = b[q] | b[q + 1] << 8 | b[q + 2] << 16 | b[q + 3] << 24
+                    wrap0[y - p["nvals"]] = u - (1 << 32) if u >= 1 << 31 else u
+        yield "step"
+
+    def cta():
+        ticket = (st[0] - TICKET0) % (1 << 32)
+        st[0] = (st[0] + 1) % (1 << 32)
+        if ticket < nwt_all:
+            return width_tile(ticket)
+        if ticket < nwt_all + nct:
+            return column_tile(ticket - nwt_all)
+        return convert(ticket - nwt_all - nct)
+
+    if order == "ticket":
+        for _ in range(p["grid"]):
+            assert "wait" not in list(cta()), "a tile waited on a later one"
+    else:
+        running, started, steps = [], 0, 0
+        while started < p["grid"] or running:
+            if started < p["grid"] and len(running) < 4 and (
+                    not running or rng.random() < 0.4):
+                running.append(cta())
+                started += 1
+                continue
+            i = int(rng.integers(len(running)))
+            try:
+                next(running[i])
+            except StopIteration:
+                running.pop(i)
+            steps += 1
+            assert steps < 100 * p["grid"] + 10_000, "the look-back stalled"
+    assert (st[0] - TICKET0) % (1 << 32) == p["grid"]
     assert bool((written == 1).all()), "a value written twice or never"
     k = k.to(torch.int16).reshape(batch, nb, rows, cols)
+    vals = vals.to(torch.int32).reshape(batch, nb)
+    wrap0 = wrap0.to(torch.int32).reshape(batch, 2 * cols - 2) if has_wrap else None
     return k, vals, wrap0
 
 
@@ -254,6 +429,9 @@ def _run(impl, wire):
     blob, level, rows, batch, nb, lens, has_wrap = wire
     if impl == "model":
         return _unpack_model(blob, level, rows, batch, nb, lens, has_wrap)
+    if impl == "model shuffled":  # another order of completion, a view blob
+        return _unpack_model(blob, level, rows, batch, nb, lens, has_wrap,
+                             order="shuffled", align=7, seed=len(blob))
     return st.unpack_cols_blob(torch.from_numpy(blob), level=level, rows=rows,
                                batch=batch, nb=nb, lens=lens,
                                has_wrap=has_wrap)
@@ -262,7 +440,7 @@ def _run(impl, wire):
 # -- (a) the plain version and (b) the kernel's model, against JAX ------------
 
 
-@pytest.mark.parametrize("impl", ["plain", "model"])
+@pytest.mark.parametrize("impl", ["plain", "model", "model shuffled"])
 @pytest.mark.parametrize("key,make", WIRES + EDGE_WIRES,
                          ids=[k for k, _ in WIRES + EDGE_WIRES])
 def test_unpack_matches_jax(key, make, impl):
@@ -335,8 +513,8 @@ def test_synth_pcm_cols_blob_dispatches_the_unpack(monkeypatch):
 
 
 @pytest.mark.parametrize("level,rows,batch,nb,has_wrap,want", [
-    (7, 16, 25, 320, True, 3), (0, 2048, 5, 416, True, 3),
-    (7, 16, 1, 2048, False, 3), (7, 16, 2, 0, True, 1),
+    (7, 16, 25, 320, True, 1), (0, 2048, 5, 416, True, 1),
+    (7, 16, 1, 2048, False, 1), (7, 16, 2, 0, True, 1),
     (7, 16, 2, 0, False, 0), (0, 9, 2, 0, True, 0), (4, 3, 0, 5, True, 0),
 ])
 def test_unpack_launches(level, rows, batch, nb, has_wrap, want):
@@ -344,38 +522,108 @@ def test_unpack_launches(level, rows, batch, nb, has_wrap, want):
     assert sum(got.values()) == want and set(got) <= set(uc.launches)
 
 
-@pytest.mark.parametrize("level,rows,batch,nb,tiles,runs", [
-    (7, 16, 25, 320, 1000, 2), (4, 40, 15, 1216, 285, 4),
-    (0, 2048, 5, 416, 3, 342), (7, 16, 1, 8, 1, 16), (7, 16, 1, 2048, 256, 4),
-    (10, 4, 10, 160, 1600, 1), (15, 1, 1, 1, 32, 1),
+@pytest.mark.parametrize("level,rows,batch,nb,tiles,tc", [
+    (7, 16, 25, 320, 500, 2048), (4, 40, 15, 1216, 570, 512),
+    (0, 2048, 5, 416, 520, 4), (7, 16, 1, 8, 8, 128), (7, 16, 1, 2048, 512, 512),
+    (10, 4, 10, 160, 800, 2048), (15, 1, 1, 1, 16, 2048),
 ])
-def test_plan_cuts_tiles_into_runs_of_rows(level, rows, batch, nb, tiles,
-                                           runs):
-    """Column tiles of TC columns; a tile's rows cut into runs until about
-    VALUE_CTAS CTAs (never more runs than rows)."""
+def test_plan_sizes_tiles_by_values(level, rows, batch, nb, tiles, tc):
+    """Column tiles of about TILE_VALUES values (a power of two of
+    columns, at most TC_MAX), halved for short calls down to
+    MIN_TILE_VALUES; the worst-case span (16 bits a value) and the
+    per-column table fit the shared memory the launch asks for."""
     p = uc.plan(level, rows, batch, nb, (0,) * 6, True)
-    assert p["nct"] == tiles
-    assert -(-rows // p["rs"]) == runs
-    assert tiles * runs >= min(uc.VALUE_CTAS, tiles * rows)
+    assert p["nct"] == tiles and 1 << p["ltc"] == tc
+    assert tc * rows <= max(uc.TILE_VALUES, 8 * rows)
+    assert (tiles >= uc.TARGET_TILES or tc * rows <= uc.MIN_TILE_VALUES
+            or tc == min(1 << level, 8))
+    assert p["span"] >= 2 * tc * rows and p["smem"] == p["span"] + 4 * tc
+    assert p["smem"] <= 227 * 1024 and p["span"] % 16 == 0  # Hopper's cap
+    assert p["grid"] == sum(p["nwt"]) + tiles + p["nvw"]
 
 
 def test_geometry_matches_the_kernels_layout():
-    """The 36 long longs in csrc/unpack.cu's geo_from order."""
+    """The 40 long longs in csrc/unpack.cu's geo_from order."""
     lens = (10, 4, 0, 3, 2, 0)
     p = uc.plan(5, 7, 2, 3, lens, True)
-    g = list(uc.geometry(p, 5, 7))
+    g = list(uc.geometry(p, 5, 7, epoch=9, ticket0=123))
     secs = p["secs"]
-    assert len(g) == 36
+    assert len(g) == 40
     assert g[:9] == [o for o, _ in secs] and g[9:18] == [n for _, n in secs]
-    assert g[18:23] == [2 * 3 * 32, 5, 7, 8, 1]
+    assert g[18:23] == [2 * 3 * 32, 5, 7, 8, p["nct"]]
     assert g[23:26] == [1, 1, 0] and g[26:29] == [1, 1, 0]
     assert g[29:32] == [0, 1, 2]
-    assert g[32:36] == [6, 2 * 62, 1, p["rs"]]
+    assert g[32:36] == [6, 2 * 62, 1, p["ltc"]]
+    assert g[36:40] == [p["span"], -(-(1 << 32) // 7), 9, 123]
     src = (pathlib.Path(uc.__file__).parent.parent / "csrc" / "unpack.cu"
            ).read_text()
-    for const in (f"TC = {uc.TC};", f"WT = {uc.WT};",
-                  f"THREADS = {uc.THREADS};", f"FIELD = {FIELD};"):
+    for const in (f"WT = {uc.WT};", f"TC_MAX = {uc.TC_MAX};",
+                  f"THREADS = {uc.THREADS};", f"FIELD = {uc.FIELD};",
+                  f"VBITS = {uc.VBITS};", f"EPOCH_SHIFT = {uc.EPOCH_SHIFT};"):
         assert const in src, const
+
+
+def test_geometry_carries_64_bit_offsets():
+    """Sections past 2^31 bytes keep their offsets in the geometry, and a
+    tile whose span starts past 2^31 bits stages to 32-bit shared
+    offsets (the model's staging, on the geometry alone)."""
+    lens = (3 << 30, 2, 2, 2, 1, 1)
+    p = uc.plan(3, 16, 1, 4, lens, False)
+    g = list(uc.geometry(p, 3, 16, epoch=1, ticket0=0))
+    assert g[2] == p["secs"][2][0] > 1 << 31 and g[9 + 1] == 3 << 30
+    start = (1 << 31) + 12345
+    for pay in (0, 7, 1 << 33):
+        a, blen, nchunk, fill = _stage(start, start + 16 * 16 * 512, pay,
+                                       3 << 29)
+        assert (pay + a) % 16 == 0 and 0 <= start // 8 - a < 32
+        assert blen % 16 == 0 and blen <= 2 * 16 * 512 + 48
+        assert nchunk * 16 <= blen and not fill
+        assert 8 * blen < 1 << 27  # every shared bit offset fits the table
+    # a span past the payload's end: nothing copied, all of it the last word
+    a, blen, nchunk, fill = _stage(start, start + 64, 3, 100)
+    assert nchunk == 0 and fill
+
+
+@pytest.mark.parametrize("name", [
+    "level 0, rows 2048", "padding codes at level 1", "rows == 1",
+    "several tiles of several width tiles", "N not a multiple of a tile",
+    "a tile with no non-zero column", "0/2048, 40 blocks"])
+def test_model_at_full_tiles(name, monkeypatch):
+    """Tiles of TILE_VALUES values where the short-call halving would cut
+    them (0/2048 x 40 blocks: tiles of 16 blocks, the last one short):
+    the model still equals the JAX package's unpack."""
+    monkeypatch.setattr(uc, "TARGET_TILES", 0)
+    wire = (_as_tuple(bench_torch.synthetic_wire(19, 0, 2048, 2, 20))
+            if name == "0/2048, 40 blocks" else _edge_wire(name))
+    p = uc.plan(*wire[1:])
+    assert (1 << p["ltc"]) * wire[2] > uc.MIN_TILE_VALUES or p["ltc"] == 11
+    if name == "0/2048, 40 blocks":
+        assert p["nct"] == 3 and p["ltc"] == 4
+    _assert_same(_unpack_model(*wire, order="shuffled", seed=3),
+                 _want(f"full tiles: {name}", wire))
+
+
+def test_scratch_epochs_and_tickets():
+    """One status buffer per (device, stream): zeroed when made, a new
+    epoch each call, grown (zeroed, epochs from 1) when a call needs more
+    words, and zeroed again before the epochs would wrap."""
+    dev = torch.device("cpu")
+    uc._Scratch._by_key.pop((None, 12345), None)
+    s = uc._Scratch.take(dev, 12345, 10)
+    assert s.epoch == 1 and s.tickets == 0
+    assert s.words.numel() == uc.SCRATCH_WORDS and not bool(s.words.any())
+    s.tickets += 40
+    assert uc._Scratch.take(dev, 12345, 10) is s and s.epoch == 2
+    assert uc._Scratch.take(dev, 54321, 10) is not s
+    s.words[0] = 99
+    s.epoch = uc.EPOCHS - 1
+    assert uc._Scratch.take(dev, 12345, 10) is s
+    assert (s.epoch, s.tickets) == (1, 0) and not bool(s.words.any())
+    big = uc._Scratch.take(dev, 12345, uc.SCRATCH_WORDS + 1)
+    assert big is not s and big.words.numel() == uc.SCRATCH_WORDS + 1
+    assert big.epoch == 1
+    for key in ((None, 12345), (None, 54321)):
+        uc._Scratch._by_key.pop(key)
 
 
 # -- the bench's capture, bound and shapes for the unpack rows ----------------
