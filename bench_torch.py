@@ -773,6 +773,8 @@ UNPACK_EDGES = {
         (17, 7, 16, 2, 40, {"pay": (None, 1, None)}),
     "a width stream of 40 tiles": (18, 7, 16, 2, 40,
                                    {"wid": (40000, None, None)}),
+    "a width stream of 293 tiles": (20, 4, 3, 2, 5,
+                                    {"wid": (300000, None, None)}),
 }
 
 

@@ -46,7 +46,8 @@ Phases (any failure exits non-zero, and no result line is printed):
             stale-amp-table seek sequences;
             random access — 300 random windows of 1-50,000 frames over
             the 190-file corpus through RandomAccessCorpus(device="cuda"),
-            equal to backend="host", one unpack call a segment;
+            equal to backend="host", one unpack launch a segment, at
+            most 4 device operations a segment under the profiler;
             CLI — `acmtool -d -r -o` in process on three fixtures, equal
             to the goldens. The stream and the CLI synthesize dense k: no
             unpack launch.
@@ -63,7 +64,7 @@ Phases (any failure exits non-zero, and no result line is printed):
             object, and the full-file call: PCM, status and filler equal
             to decode_corpus_host of the same bytes, one synthesis launch
             and one unpack call a window, no copy from the card while it
-            decodes (the carry is never fetched) and fewer than 10 device
+            decodes (the carry is never fetched) and at most 3.2 device
             operations a window under the profiler, the copy included; a
             rows == 1 stream (one fused launch a window) and a level-0
             stream (one level-0 launch a window); a
@@ -89,6 +90,8 @@ Phases (any failure exits non-zero, and no result line is printed):
             unpack on the card): PCM, status and filler equal to
             decode_corpus_host, checksum() equal to the host sum and to the
             cols-wire route's, the fused and level-0 kernels launched;
+            torch ops — unpack_blocks and checksum() timed once each
+            beside their byte bounds;
             bench — bench_torch.run_bench in process on the card at the
             full corpus width, on phase 3's files and phase 6's stream
             (no second encode), three rounds a group: every card field

@@ -418,7 +418,8 @@ def _unpack_equal(blob, kw):
     "several tiles of several width tiles",
     "a span that ends at the stream's last word",
     "ordinals past 2L at a width-tile boundary",
-    "a 1-byte payload among many tiles", "a width stream of 40 tiles"])
+    "a 1-byte payload among many tiles", "a width stream of 40 tiles",
+    "a width stream of 293 tiles"])
 def test_unpack_kernel_matches_plain_on_edges(name):
     dev = _card()
     wire = _bench().edge_wire(name)
