@@ -928,13 +928,214 @@ def unpack_shapes(wires: dict[str, list[dict]], window: int) -> list:
     return out
 
 
+# -- the checksum and the width-class block unpack: bounds, rows -------------
+
+
+#: short spin kernels (torch.cuda._sleep) queued at the start of every
+#: profiled window and left out of its counts: in a process that has run
+#: many profiler sessions, the first device activities of a window can go
+#: unrecorded (on an H100, the first two of each window)
+PROFILE_GUARD = 4
+
+
+def profiled(torch, fn) -> tuple[float, list]:
+    """fn() under torch.profiler, after PROFILE_GUARD spin kernels: (wall
+    s, [(device ms, operations, kernel or copy name)] largest first, the
+    spin kernels left out; empty where the profiler saw no device
+    activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_GUARD):
+            torch.cuda._sleep(1000)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or "spin_kernel" in ev.key:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        dev.append((us / 1e3, ev.count, ev.key))
+    return wall, sorted(dev, reverse=True)
+
+
+def per_call(torch, fn, reps: int) -> dict:
+    """fn() once to warm up, then: the host wall time a call over `reps`
+    calls ending in a synchronise, and the device time and device
+    operations a call under torch.profiler over `reps` more (0 where the
+    profiler saw no device activity)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, ranked = profiled(torch, lambda: [fn() for _ in range(reps)])
+    return {"wall_ms": wall * 1e3 / reps,
+            "device_ms": sum(m for m, _, _ in ranked) / reps,
+            "ops": sum(c for _, c, _ in ranked) / reps}
+
+
+def checksum_bound(pcms, ngs) -> tuple[float, str]:
+    """Least time (ms) of one masked sum over chunks (pcm, n_good): the
+    good words (2 B each) and the span table (32 B a span) read once over
+    HBM bandwidth, against one int32 addition a word over the int32 ALU
+    rate. Returns (ms, what bounds it)."""
+    from libacm_tpu_torch.ops.checksum_cuda import SPAN_WORDS, good_rows
+
+    words = spans = 0
+    for pcm, ng in zip(pcms, ngs):
+        g = good_rows(ng, pcm.shape[1])
+        words += int(g.sum()) * pcm.shape[2]
+        spans += int((g > 0).sum())
+    nbytes = 2 * words + 8 * (1 + SPAN_WORDS * spans)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = words / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def checksum_row(torch, pcms, ngs, launches: int, card: str) -> dict:
+    """The checksum kernel on chunks (pcm on one card, n_good) held to its
+    plain version (the digest bit-equal), its time by CUDA events over 20
+    launches on one table (L2 warm, and flushed before each), the whole
+    call's (table copy, launch, fetch) wall time, device time and device
+    operations (per_call) beside the plain version's,
+    torch.sum(pcm, dtype=torch.int64) over the same tensors (the same
+    bytes without the mask) as the library yardstick, and the bound.
+    `launches` are the kernel's on the path."""
+    from libacm_tpu_torch.ops import checksum_cuda as cc
+
+    got = int(cc.sum_all(pcms, ngs).item()) & 0xFFFFFFFF
+    want = int(cc.sum_all_plain(pcms, ngs).item()) & 0xFFFFFFFF
+    if got != want:
+        raise RuntimeError(f"checksum kernel {got:#010x} != its plain "
+                           f"version {want:#010x}")
+    tab, nspans, tiles = cc.plan(np.concatenate(
+        [cc.row_spans(pcm, ng) for pcm, ng in zip(pcms, ngs)]))
+    table = torch.from_numpy(tab).to(pcms[0].device)
+    ms = time_ms(torch, lambda: cc.launch(table, nspans, tiles), reps=20)
+    cold_ms = time_ms_cold(torch, lambda: cc.launch(table, nspans, tiles),
+                           reps=20)
+    lib_ms = time_ms(torch, lambda: [p.sum(dtype=torch.int64) for p in pcms],
+                     reps=20)
+    call = per_call(torch, lambda: cc.sum_all(pcms, ngs).item(), reps=20)
+    plain = per_call(torch, lambda: cc.sum_all_plain(pcms, ngs).item(),
+                     reps=5)
+    bms, by = checksum_bound(pcms, ngs)
+    words = sum(int(cc.good_rows(ng, p.shape[1]).sum()) * p.shape[2]
+                for p, ng in zip(pcms, ngs))
+    row = {
+        "name": f"checksum (corpus, {words} words in {len(pcms)} chunks)",
+        "kernel": "checksum", "route": "cuda",
+        "source": "libacm_tpu_torch/csrc/checksum.cu",
+        "replaces": "libacm_tpu/parallel/corpus.py:413",
+        "path": "corpus", "launches": launches, "max_abs_err": 0,
+        "ms": ms, "cold_l2_ms": cold_ms,
+        "plain_ms": plain["device_ms"], "plain_ops": plain["ops"],
+        "plain_wall_ms": plain["wall_ms"],
+        "call_ms": call["device_ms"], "call_ops": call["ops"],
+        "call_wall_ms": call["wall_ms"],
+        "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+        "library_ms": lib_ms, "words": words, "chunks": len(pcms),
+        "spans": nspans, "tiles": tiles,
+    }
+    log(f"  checksum {words} words in {len(pcms)} chunks: kernel {ms:.6f} "
+        f"ms ({cold_ms:.6f} with L2 flushed), checksum() "
+        f"{row['call_ms']:.6f} ms in {row['call_ops']} device operations "
+        f"(wall {row['call_wall_ms']:.3f} ms), plain {row['plain_ms']:.6f} "
+        f"ms in {row['plain_ops']} (wall {row['plain_wall_ms']:.3f} ms), "
+        f"torch.sum {lib_ms:.6f} ms, bound {bms:.6f} ms ({by}), "
+        f"{bms / ms:.1%} of bound {card}")
+    return row
+
+
+def packed_chunk(native, files, n_files: int = 25):
+    """ops.packing.PackedBlocks of the first n_files files' blocks, as the
+    dense route without the scanner packs a chunk (class counts padded to
+    multiples of 64)."""
+    from libacm_tpu_torch.ops import packing
+
+    k = np.concatenate([native.scan_bytes(d).k for d in files[:n_files]])
+    pads = tuple(-(-c // 64) * 64 for c in packing.class_counts(k))
+    return packing.pack_blocks(k, pad_to=pads)
+
+
+def unpack_blocks_bound(pk) -> tuple[float, str]:
+    """Least time (ms) of one unpack_blocks call: the packed rows and
+    their indices read once and k (2 B a word) written once over HBM
+    bandwidth, against 2 int32 operations a word of the 4- and 8-bit rows
+    (the sign extension's shift pair) over the int32 ALU rate."""
+    n = pk.rows * pk.cols
+    nbytes = pk.wire_bytes + 2 * pk.nb * n
+    ops = 2 * (len(pk.idx4) + len(pk.idx8)) * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unpack_blocks_row(torch, pk, dev, path: str, launches: int,
+                      card: str) -> dict:
+    """ops.packing.unpack_blocks on pk's tensors on the card (the fill and
+    the kernel) held to unpack_blocks_plain on the same tensors (tolerance
+    0), both timed by CUDA events over 20 calls (L2 warm, and flushed
+    before each), the call's device operations (per_call), the bound,
+    and `launches` on `path`."""
+    from libacm_tpu_torch.ops import packing
+
+    t = [torch.from_numpy(getattr(pk, f)).to(dev)
+         for f in ("p4", "p8", "p16", "idx4", "idx8", "idx16")]
+    kw = {"nb": pk.nb, "rows": pk.rows, "cols": pk.cols}
+    got = packing.unpack_blocks(*t, **kw)
+    want = packing.unpack_blocks_plain(*t, **kw)
+    err = (int((got.to(torch.int32) - want.to(torch.int32)).abs().max()
+               .item()) if got.numel() else 0)
+    if err:
+        raise RuntimeError(f"unpack_blocks kernel disagrees with its plain "
+                           f"version: max abs err {err}")
+    del got, want
+    ms = time_ms(torch, lambda: packing.unpack_blocks(*t, **kw), reps=20)
+    cold_ms = time_ms_cold(torch, lambda: packing.unpack_blocks(*t, **kw),
+                           reps=20)
+    plain_ms = time_ms(torch, lambda: packing.unpack_blocks_plain(*t, **kw),
+                       reps=20)
+    call = per_call(torch, lambda: packing.unpack_blocks(*t, **kw), reps=10)
+    bms, by = unpack_blocks_bound(pk)
+    n4, n8, n16 = len(pk.idx4), len(pk.idx8), len(pk.idx16)
+    row = {
+        "name": f"unpack_blocks ({pk.rows}x{pk.cols} [{pk.nb}] blocks, "
+                f"{n4}/{n8}/{n16} packed 4/8/16-bit rows)",
+        "kernel": "unpack_blocks", "route": "cuda",
+        "source": "libacm_tpu_torch/csrc/unpack_blocks.cu",
+        "replaces": "libacm_tpu/ops/packing.py:184",
+        "path": path, "launches": launches, "max_abs_err": err,
+        "ms": ms, "cold_l2_ms": cold_ms, "plain_ms": plain_ms,
+        "call_ops": call["ops"],
+        "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+        "library_ms": None, "packed_bytes": pk.wire_bytes,
+        "blocks": pk.nb, "rows": pk.rows, "cols": pk.cols,
+    }
+    log(f"  unpack_blocks {pk.rows}x{pk.cols} [{pk.nb}], {pk.wire_bytes} "
+        f"packed bytes: {ms:.6f} ms ({cold_ms:.6f} with L2 flushed) in "
+        f"{row['call_ops']} device operations, plain {plain_ms:.6f} ms, "
+        f"bound {bms:.6f} ms ({by}), {bms / ms:.1%} of bound {card}")
+    return row
+
+
 def device_compute_msps(rows: list[dict],
                         geoms: dict[tuple[int, int], int]) -> float | None:
     """The synthesis kernel's rate over the corpus geometries: the
     harmonic (time-weighted) mean of the corpus rows' rates, weighted by
     each geometry's share of the corpus's samples."""
     best = {(r["level"], r["rows"]): r["Msamples_per_s"] for r in rows
-            if r["path"] == "corpus" and r.get("kernel") != "unpack"}
+            if r["path"] == "corpus" and r.get("kernel", "synth") == "synth"}
     if not best:
         return None
     shares = {g: float(geoms.get(g, 1)) for g in best}
@@ -956,7 +1157,8 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
     import libacm_tpu_torch as acm
     from libacm_tpu_torch import io as tio
     from libacm_tpu_torch import testing
-    from libacm_tpu_torch.ops import synth_cuda, unpack_cuda
+    from libacm_tpu_torch.ops import (checksum_cuda, synth_cuda,
+                                      unpack_blocks_cuda, unpack_cuda)
     from libacm_tpu_torch.parallel import (RandomAccessCorpus, build_index,
                                            corpus)
     from libacm_tpu_torch.scan import native
@@ -975,9 +1177,10 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
 
     if not native.available():
         raise RuntimeError("the port's C++ scanner did not build")
+    counters = (synth_cuda, unpack_cuda, checksum_cuda, unpack_blocks_cuda)
     if on_card:
-        synth_cuda.build()
-        unpack_cuda.build()
+        for mod in counters:
+            mod.build()
 
     # -- data ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1000,14 +1203,16 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
     wires: dict[str, list[dict]] = {}
 
     def counted(path: str, fn):
-        """fn() with the kernels' launch counters (synthesis and unpack)
-        reset before and read after, under `path`; the wires it unpacked
-        go to wires[path]."""
-        synth_cuda.reset_launches()
-        unpack_cuda.reset_launches()
+        """fn() with every kernel's launch counters (synthesis, unpack,
+        checksum, block unpack) reset before and read after, under `path`;
+        the wires it unpacked go to wires[path]."""
+        for mod in counters:
+            mod.reset_launches()
         with capture_wires() as got:
             out = fn()
-        launches[path] = dict(synth_cuda.launches) | dict(unpack_cuda.launches)
+        launches[path] = {}
+        for mod in counters:
+            launches[path] |= mod.launches
         wires[path] = got
         return out
 
@@ -1020,10 +1225,12 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
     # rate: the samples of the blocks decoded (CorpusSummary.samples),
     # which both decoders synthesize; the results' PCM (host_words) is
     # clamped to each header's sample count
-    first = counted("corpus", lambda: corpus.decode_corpus_device(
-        files, device=dev))
+    def first_round():
+        dc = corpus.decode_corpus_device(files, device=dev)
+        return dc, dc.checksum()
+
+    first, checksum = counted("corpus", first_round)
     total = first.summary.samples
-    checksum = first.checksum()
     chunk_shapes = sorted({(b.level, b.rows, b.pcm.shape[0], b.pcm.shape[1])
                            for b in first._buckets})
     del first
@@ -1278,6 +1485,13 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
         rows = kernel_rows(torch, dev, shapes, launches, card)
         rows += unpack_rows(torch, unpack_shapes(wires, windows[0]),
                             launches, card)
+        dc = corpus.decode_corpus_device(files, device=dev)
+        (pcms, ngs), = corpus._checksum_inputs(dc._buckets).values()
+        rows.append(checksum_row(torch, pcms, ngs,
+                                 launches["corpus"]["checksum"], card))
+        del dc, pcms
+        rows.append(unpack_blocks_row(torch, packed_chunk(native, files), dev,
+                                      "one call", 1, card))
         artifact["kernel_rows"] = rows
         artifact["device_compute_Msamples_per_s"] = device_compute_msps(
             rows, geoms)

@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. card:    the card's name and power limit (nvidia-smi); build the CUDA
-            synthesis kernels and the cols-wire unpack (one nvcc each,
-            sm_90a) and the port's C++ scanner, all started together, while
-            a thread encodes phase 3's corpus and phase 6's long stream.
+            synthesis kernels, the cols-wire unpack, the checksum and the
+            block unpack (one nvcc each, sm_90a) and the port's C++
+            scanner, all started together, while a thread encodes phase
+            3's corpus and phase 6's long stream.
 2. parity:  each synthesis route against the plain torch version on the
             card, random inputs from a numpy seed, on the PARITY
             geometries; tolerance 0 (PCM and final carry bit-equal); every
@@ -23,11 +24,12 @@ Phases (any failure exits non-zero, and no result line is printed):
             every window of the long stream at W = 2048, and the segments
             of 40 random-access windows.
 3. corpus:  decode_corpus_device(device="cuda") over the bench corpus mix
-            (bench.py's counts, ~120 M samples) — launch counters reset just
-            before and read just after: one synthesis launch and one unpack
-            launch a chunk — checked file by file against the
-            port's decode_corpus_host (PCM, status, filler words), and its
-            checksum() against the same masked sum taken on the host.
+            (bench.py's counts, ~120 M samples) and its checksum() — launch
+            counters reset just before and read just after: one synthesis
+            launch and one unpack launch a chunk, one checksum launch —
+            checked file by file against the port's decode_corpus_host
+            (PCM, status, filler words), and its checksum() against the
+            same masked sum taken on the host.
 4. numbers: one corpus decode under torch.profiler (wall, host scan, the
             card's busy share and its kernels by time), each kernel's time
             per bench geometry with CUDA events beside the plain version's
@@ -75,11 +77,12 @@ Phases (any failure exits non-zero, and no result line is printed):
             equal to the plain version;
             sharded corpus — phase 3's corpus through
             decode_corpus_device(devices=[cuda:0, cuda:0]) (and over every
-            card where there are several): checksum() equal to phase 3's,
-            results equal to decode_corpus_host, one unpack call a group;
-            two processes — two ranks of tests/_torch_dist_worker.py over
-            gloo, each decoding its manifest shard on the card, totals
-            equal to the one-process summary.
+            card where there are several): checksum() equal to phase 3's
+            in one checksum launch, results equal to decode_corpus_host,
+            one unpack call a group; two processes — two ranks of
+            tests/_torch_dist_worker.py over gloo, each decoding its
+            manifest shard on the card, totals equal to the one-process
+            summary, one checksum launch a rank.
 7. the dense route and the bench, each with the launch counters reset
             just before and read just after:
             dense route — decode_corpus_device(device="cuda", pack=False)
@@ -87,11 +90,17 @@ Phases (any failure exits non-zero, and no result line is printed):
             hostile ones (dense int16 k straight into the kernel), and
             pack=True with the scanner answering "not built" for that call
             (oracle scan of short files of every class, pack_blocks, the
-            unpack on the card): PCM, status and filler equal to
-            decode_corpus_host, checksum() equal to the host sum and to the
-            cols-wire route's, the fused and level-0 kernels launched;
-            torch ops — unpack_blocks and checksum() timed once each
-            beside their byte bounds;
+            block unpack kernel on the card, one launch a chunk): PCM,
+            status and filler equal to decode_corpus_host, checksum() equal
+            to the host sum and to the cols-wire route's (one checksum
+            launch), the fused and level-0 kernels launched;
+            checksum and block unpack — each kernel held to its plain
+            version on the bench corpus (checksum() over the whole
+            corpus's PCM; unpack_blocks on a 25-file 7/16 chunk packed as
+            the dense route packs it), timed with the L2 warm and flushed
+            beside its bound (the checksum beside torch.sum over the same
+            tensors), its device operations counted under the profiler
+            (at most 3 a checksum(), at most 2 an unpack_blocks call);
             bench — bench_torch.run_bench in process on the card at the
             full corpus width, on phase 3's files and phase 6's stream
             (no second encode), three rounds a group: every card field
@@ -102,9 +111,10 @@ Phases (any failure exits non-zero, and no result line is printed):
             groups), and one JSON line of kernels: a row for each route
             that ran (the main path's, those of the other paths' shapes,
             and the wide passes and tail of blocks over 227 KB, with their
-            launches in phase 2; and the unpack's rows of phase 4, with
-            their launches on the corpus, the stream windows and random
-            access).
+            launches in phase 2; the unpack's rows of phase 4, with their
+            launches on the corpus, the stream windows and random access;
+            and the checksum's and the block unpack's rows, with their
+            launches on every path that ran them).
 
 Phases 1-3 and the checks of phases 4-6 run at the depth they always had.
 Given to the bench (phase 7), which runs them in turns with repeats: phase
@@ -148,6 +158,7 @@ from bench_torch import (MIX, STREAM_BLOCKS, STREAM_DISTINCT,  # noqa: E402
                          route_launches, unpack_max_err, unpack_shapes,
                          wire_args)
 from bench_torch import max_err as _max_err  # noqa: E402
+from bench_torch import profiled as _profiled  # noqa: E402
 from bench_torch import random_inputs as _random_inputs  # noqa: E402
 from bench_torch import time_ms as _time_ms  # noqa: E402
 from bench_torch import time_ms_cold as _time_ms_cold  # noqa: E402
@@ -334,30 +345,6 @@ def check_corpus(native, files, dc, host) -> int:
     return len(files)
 
 
-def _profiled(torch, fn) -> tuple[float, list]:
-    """fn() under torch.profiler: (wall s, [(device ms, launches, kernel
-    name)] largest first)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        dev.append((us / 1e3, ev.count, ev.key))
-    return wall, sorted(dev, reverse=True)
-
-
 def print_breakdown(label: str, wall: float, ranked: list, card: str,
                     host_note: str = "") -> None:
     """The device's busy share of the wall time and its kernels by time."""
@@ -369,7 +356,7 @@ def print_breakdown(label: str, wall: float, ranked: list, card: str,
     print(f"{label}: profiled wall {wall * 1e3} ms{host_note}, device busy "
           f"{busy} ms ({busy / (wall * 1e3):.1%} of wall) {card}")
     for i, (ms, count, key) in enumerate(ranked):
-        if i < 8 or "synth_" in key or "unpack_" in key:
+        if i < 8 or any(k in key for k in ("synth_", "unpack_", "checksum_")):
             print(f"  device #{i + 1}: {ms} ms in {count} x {key[:90]}")
 
 
@@ -954,14 +941,20 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
                   and (h.pcm is None or np.array_equal(g.pcm, h.pcm)),
                   f"{what}: file {h.index} PCM differs from the host decode")
 
-    from libacm_tpu_torch.ops import unpack_cuda
+    from libacm_tpu_torch.ops import checksum_cuda, unpack_cuda
 
     twice = [torch.device("cuda", 0)] * 2
     synth_cuda.reset_launches()
     unpack_cuda.reset_launches()
+    checksum_cuda.reset_launches()
     dc = corpus.decode_corpus_device(files, devices=twice)
-    dc.block_until_ready()
+    dc.block_until_ready().checksum()
     launches = dict(synth_cuda.launches)
+    # one device (named twice): one checksum launch over its groups
+    check(dict(checksum_cuda.launches) == {"checksum": 1},
+          f"devices=[cuda:0, cuda:0]: checksum launches "
+          f"{checksum_cuda.launches}, not one a device")
+    launches |= checksum_cuda.launches
     check(dict(unpack_cuda.launches)
           == unpack_expected(unpack_cuda, len(dc._buckets)),
           f"devices=[cuda:0, cuda:0]: unpack launches {unpack_cuda.launches} "
@@ -1071,6 +1064,9 @@ def phase6_processes(files, summary3, checksum3) -> dict:
             launches[kernel] += s["launches"][kernel]
     check(all(launches[k] for k in CORPUS_KERNELS),
           f"two processes: launches {launches}: a kernel ran no time")
+    check(launches["checksum"] == 2,
+          f"two processes: checksum launches {launches['checksum']}, not "
+          "one a rank")
     print(f"phase 6: two processes over gloo: shards "
           f"{[s['files'] for s in shards]} files on "
           f"{[s['device'] for s in shards]}, totals equal to one process "
@@ -1145,10 +1141,14 @@ def phase7_dense(torch, synth_cuda, corpus, native, testing, files,
     hostile ones, at full size. pack=True without the scanner: the Python
     oracle scans (slow, so short files: every class at a twentieth of its
     length, two seeds), blocks are packed by width class for the copy and
-    unpacked on the card (unpack_blocks). PCM, status and filler equal to
-    decode_corpus_host, checksum() equal to the host sum and to the
-    cols-wire route's, both kernel routes launched. Returns the pack=False
-    decode's launches and its largest group per route."""
+    unpacked on the card (unpack_blocks: one kernel launch a chunk). PCM,
+    status and filler equal to decode_corpus_host, checksum() equal to
+    the host sum and to the cols-wire route's (one checksum launch), both
+    synthesis routes launched. Returns each decode's launches (the
+    checksum's included) and the pack=False decode's largest group per
+    route."""
+    from libacm_tpu_torch.ops import checksum_cuda, unpack_blocks_cuda
+
     firsts = np.cumsum([0] + [m[1] for m in MIX])[:-1]
     full = [files[i + j] for i in firsts for j in (0, 1)] + files[-5:]
     short = make_corpus(testing, 0.05, seed=7) + make_corpus(testing, 0.05,
@@ -1164,14 +1164,21 @@ def phase7_dense(torch, synth_cuda, corpus, native, testing, files,
         if not kw:
             native.available = lambda: False  # for this call only
         try:
-            synth_cuda.reset_launches()
+            for mod in (synth_cuda, checksum_cuda, unpack_blocks_cuda):
+                mod.reset_launches()
             t0 = time.perf_counter()
             dc = corpus.decode_corpus_device(subset, device="cuda", **kw)
             dc.block_until_ready()
             wall = time.perf_counter() - t0
-            launches = dict(synth_cuda.launches)
+            dc.checksum()
+            launches = (dict(synth_cuda.launches) | checksum_cuda.launches
+                        | unpack_blocks_cuda.launches)
         finally:
             native.available = scanner
+        check(launches["checksum"] == 1
+              and launches["unpack_blocks"] == (0 if kw else len(dc._buckets)),
+              f"phase 7: {what}: checksum and unpack_blocks launches "
+              f"{launches} for {len(dc._buckets)} chunks")
         check(dc.summary.scan_s == 0,
               f"phase 7: {what} took the cols-wire route")
         check_corpus(native, subset, dc, host)
@@ -1186,53 +1193,55 @@ def phase7_dense(torch, synth_cuda, corpus, native, testing, files,
               f"decode_corpus_host, checksum {dc.checksum():#010x} equal to "
               f"the cols-wire route's; launches {launches}; {wall:.3f} s "
               f"{card}")
-        out.setdefault("launches", launches)
+        out["launches" if kw else "packed_launches"] = launches
         out.setdefault("shapes", largest_groups(synth_cuda, dc))
         del dc, cols
     return out
 
 
-def phase7_torch_ops(torch, native, corpus, files, card) -> None:
-    """The two pieces of the JAX package's device work that stay torch ops
-    (no kernel of their own), each timed once at the bench's shapes beside
-    its byte bound: ops.packing.unpack_blocks on the packed blocks of the
-    mix's first 25 speech files (7/16, 300 blocks each: a corpus chunk's
-    worth, as the dense route without the scanner packs them), by CUDA
-    events with the L2 warm and flushed; and checksum() over the whole
-    corpus's PCM, its device time under the profiler (it fetches one
-    scalar a device, so events would time the host too)."""
-    from libacm_tpu_torch.ops import packing
-
-    k = np.concatenate([native.scan_bytes(d).k for d in files[:25]])
-    pk = packing.pack_blocks(k)
-    t = [torch.from_numpy(a).to("cuda")
-         for a in (pk.p4, pk.p8, pk.p16, pk.idx4, pk.idx8, pk.idx16)]
-
-    def unpack():
-        return packing.unpack_blocks(*t, nb=pk.nb, rows=pk.rows,
-                                     cols=pk.cols)
-
-    check(torch.equal(unpack().cpu(), torch.from_numpy(k)),
-          "unpack_blocks differs from the dense k")
-    ms = _time_ms(torch, unpack, reps=20)
-    cold = _time_ms_cold(torch, unpack, reps=20)
-    bms = (pk.wire_bytes + 2 * k.size) / bench_torch.HBM_BYTES_PER_S * 1e3
-    print(f"phase 7: torch ops: unpack_blocks 7/16 [25 files, "
-          f"{pk.nb} blocks], {pk.wire_bytes} packed bytes: {ms:.6f} ms "
-          f"({cold:.6f} ms with L2 flushed), bound {bms:.6f} ms (bytes), "
-          f"{bms / ms:.1%} of bound {card}")
+def phase7_kernels(torch, native, corpus, files, dev, card,
+                   checksum_launches: int, packed_launches: int) -> list:
+    """The checksum and block-unpack kernels at the bench's shapes, each
+    held to its plain version (a mismatch fails), timed with the L2 warm
+    and flushed beside its bound, its device operations counted under the
+    profiler (bench_torch.checksum_row, unpack_blocks_row): checksum()
+    over the whole corpus's PCM (10 chunks, one launch, at most three
+    operations: the span table's copy, the launch, the scalar's fetch;
+    torch.sum over the same tensors as its library yardstick), and
+    unpack_blocks on the mix's first 25 speech files packed as the dense
+    route packs a chunk (7/16, 7,500 blocks; the fill and one launch).
+    Returns the two JSON rows, with the launches of the paths that ran
+    them (phase 3's corpus; phase 7's dense route with pack=True)."""
     dc = corpus.decode_corpus_device(files, device="cuda")
     dc.block_until_ready()
-    dc.checksum()
-    wall, ranked = _profiled(torch, dc.checksum)
-    busy = sum(ms_ for ms_, _, _ in ranked)
-    nbytes = sum(2 * b.pcm.numel() for b in dc._buckets)
-    bms = nbytes / bench_torch.HBM_BYTES_PER_S * 1e3
-    print(f"phase 7: torch ops: checksum() over {nbytes // 2} PCM words in "
-          f"{len(dc._buckets)} chunks: device {busy:.6f} ms in "
-          f"{sum(c for _, c, _ in ranked)} operations (wall "
-          f"{wall * 1e3:.3f} ms), bound {bms:.6f} ms (bytes)"
-          + (f", {bms / busy:.1%} of bound" if busy else "") + f" {card}")
+    (pcms, ngs), = corpus._checksum_inputs(dc._buckets).values()
+    ck = bench_torch.checksum_row(torch, pcms, ngs, checksum_launches, card)
+    # 0: the profiler saw no device activity (the count is not measured)
+    check(ck["call_ops"] <= 3, f"phase 7: checksum() made {ck['call_ops']} "
+          "device operations on one device, more than 3")
+    print(f"phase 7: checksum kernel over {ck['words']} PCM words in "
+          f"{ck['chunks']} chunks ({ck['spans']} spans, {ck['tiles']} tiles), "
+          f"equal to its plain version: kernel {ck['ms']:.6f} ms "
+          f"({ck['cold_l2_ms']:.6f} ms with L2 flushed); checksum() device "
+          f"{ck['call_ms']:.6f} ms in {ck['call_ops']} operations (wall "
+          f"{ck['call_wall_ms']:.3f} ms); plain {ck['plain_ms']:.6f} ms in "
+          f"{ck['plain_ops']} operations (wall {ck['plain_wall_ms']:.3f} ms);"
+          f" torch.sum {ck['library_ms']:.6f} ms; bound {ck['bound_ms']:.6f} "
+          f"ms ({ck['bound_by']}), {ck['bound_share']:.1%} of bound {card}")
+    del dc, pcms
+    ub = bench_torch.unpack_blocks_row(
+        torch, bench_torch.packed_chunk(native, files), dev,
+        "dense_route_packed", packed_launches, card)
+    check(ub["call_ops"] <= 2, f"phase 7: unpack_blocks made "
+          f"{ub['call_ops']} device operations, more than the fill and one "
+          "launch")
+    print(f"phase 7: unpack_blocks kernel 7/16 [{ub['blocks']} blocks], "
+          f"{ub['packed_bytes']} packed bytes, equal to its plain version: "
+          f"{ub['ms']:.6f} ms ({ub['cold_l2_ms']:.6f} ms with L2 flushed) in "
+          f"{ub['call_ops']} device operations, plain {ub['plain_ms']:.6f} ms,"
+          f" bound {ub['bound_ms']:.6f} ms ({ub['bound_by']}), "
+          f"{ub['bound_share']:.1%} of bound {card}")
+    return [ck, ub]
 
 
 def _all_finite(x) -> bool:
@@ -1282,7 +1291,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from libacm_tpu_torch import testing
-    from libacm_tpu_torch.ops import synth_cuda, synth_torch, unpack_cuda
+    from libacm_tpu_torch.ops import (checksum_cuda, synth_cuda, synth_torch,
+                                      unpack_blocks_cuda, unpack_cuda)
     from libacm_tpu_torch.parallel import build_index, corpus
     from libacm_tpu_torch.scan import native
 
@@ -1309,9 +1319,10 @@ def main() -> int:
     scanner_ok: list[bool] = []
     th = threading.Thread(target=lambda: scanner_ok.append(native.available()))
     # one nvcc per CUDA source, all started together
-    unpack_built: list = []
-    tu = threading.Thread(target=lambda: unpack_built.append(
-        (unpack_cuda.build(), time.perf_counter())))
+    built: dict = {}
+    others = (unpack_cuda, checksum_cuda, unpack_blocks_cuda)
+    build_threads = [threading.Thread(target=lambda m=m: built.__setitem__(
+        m.__name__, (m.build(), time.perf_counter()))) for m in others]
     # the corpus and phase 6's long stream are encoded (pure Python and
     # numpy) while the compilers run in their own processes
     encoded: list = []
@@ -1327,20 +1338,24 @@ def main() -> int:
     enc = threading.Thread(target=encode)
     t0 = time.perf_counter()
     th.start()
-    tu.start()
+    for b in build_threads:
+        b.start()
     enc.start()
     so, ptxas = synth_cuda.build()
     t_nvcc = time.perf_counter() - t0
-    tu.join()
+    for b in build_threads:
+        b.join()
     th.join()
     t_builds = time.perf_counter() - t0
     check(scanner_ok == [True], "the port's C++ scanner did not build")
-    check(len(unpack_built) == 1, "the unpack kernel did not build")
-    (so_u, ptxas_u), t_u = unpack_built[0]
-    print(f"phase 1: built {so.name} (nvcc {t_nvcc:.1f} s), {so_u.name} "
-          f"(nvcc {t_u - t0:.1f} s) and the scanner ({t_builds:.1f} s for "
-          "all)")
-    for line in (ptxas + ptxas_u).splitlines():
+    missing = [m.__name__ for m in others if m.__name__ not in built]
+    check(not missing, f"kernels not built: {missing}")
+    print(f"phase 1: built {so.name} (nvcc {t_nvcc:.1f} s), "
+          + ", ".join(f"{so_.name} (nvcc {t_ - t0:.1f} s)"
+                      for (so_, _), t_ in built.values())
+          + f" and the scanner ({t_builds:.1f} s for all)")
+    for line in (ptxas + "".join(r for (_, r), _ in built.values())
+                 ).splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
@@ -1400,20 +1415,26 @@ def main() -> int:
     print(f"phase 3: encoded {len(files)} files "
           f"({sum(map(len, files)) / 1e6:.1f} MB) in {t_enc - t0:.1f} s, "
           f"and the long stream in {t_stream:.1f} s, beside the builds")
-    synth_cuda.reset_launches()
-    unpack_cuda.reset_launches()
+    # the main path: the decode and its checksum, as the bench times them
+    for mod in (synth_cuda, unpack_cuda, checksum_cuda):
+        mod.reset_launches()
     t0 = time.perf_counter()
     dc = corpus.decode_corpus_device(files, device="cuda")
     dc.block_until_ready()
     t_first = time.perf_counter() - t0
+    checksum3 = dc.checksum()
     main_launches = dict(synth_cuda.launches)
     main_unpack = dict(unpack_cuda.launches)
+    main_checksum = dict(checksum_cuda.launches)
     samples = dc.summary.samples
     shapes = sorted({(b.level, b.rows, b.pcm.shape[0], b.pcm.shape[1])
                      for b in dc._buckets})
     print(f"phase 3: decode_corpus_device: {samples} samples, "
           f"{len(dc._buckets)} chunks, launches {main_launches} "
-          f"{main_unpack}, first run {t_first:.3f} s {card}")
+          f"{main_unpack} {main_checksum}, first run {t_first:.3f} s {card}")
+    # one checksum launch over every chunk of the one device
+    check(main_checksum == {"checksum": 1},
+          f"main path: checksum launches {main_checksum}, not one")
     main_kernels = path_kernels(synth_cuda, [(lv, rw, nb) for lv, rw, _, nb
                                              in shapes])
     check(main_kernels == set(CORPUS_KERNELS),
@@ -1432,7 +1453,7 @@ def main() -> int:
     print(f"phase 3: decode_corpus_host ({os.cpu_count()} threads) "
           f"{samples / t_host / 1e6} Msamples/s (host clock)")
     n_checked = check_corpus(native, files, dc, host)
-    checksum3, summary3 = dc.checksum(), dc.summary
+    summary3 = dc.summary
     print(f"phase 3: {n_checked} files equal to decode_corpus_host; "
           f"checksum {checksum3:#010x} equal to the host sum")
     del dc
@@ -1522,7 +1543,7 @@ def main() -> int:
 
     # -- 5. reference API on the card ---------------------------------------
     mix_files = mix_class_firsts(files) + [files[-5]]  # + a bit-flipped one
-    paths = {"corpus": main_launches | main_unpack}
+    paths = {"corpus": main_launches | main_unpack | main_checksum}
     paths["stream"] = phase5_stream(torch, synth_cuda, mix_files, card)
     paths["random_access"] = phase5_random_access(torch, synth_cuda, files,
                                                    card)
@@ -1550,12 +1571,15 @@ def main() -> int:
     dense7 = phase7_dense(torch, synth_cuda, corpus, native, testing, files,
                           card)
     paths["dense_route"] = dense7["launches"]
-    phase7_torch_ops(torch, native, corpus, files, card)
-    phase_done("phase 7 (dense route)")
+    paths["dense_route_packed"] = dense7["packed_launches"]
+    rows7 = phase7_kernels(torch, native, corpus, files, dev, card,
+                           main_checksum["checksum"],
+                           dense7["packed_launches"]["unpack_blocks"])
+    phase_done("phase 7 (dense route, checksum and block unpack)")
     art = phase7_bench(files, stream_data, checksum3)
     paths["bench"] = {
         kernel: sum(n.get(kernel, 0) for n in art["device_launches"].values())
-        for kernel in main_launches | main_unpack}
+        for kernel in paths["corpus"] | dense7["packed_launches"]}
     phase_done("phase 7 (bench)")
 
     def by_path(route: str) -> dict:
@@ -1569,10 +1593,14 @@ def main() -> int:
         row["launches"] = by_path(UNPACK_ROUTE)[p]
         row["launches_by_path"] = {p: row["launches"]}
         check(row["launches"] > 0, f"{row['name']}: no unpack launch on {p}")
+    for row in rows7:
+        row["launches_by_path"] = {p: n for p, n in by_path(
+            row["kernel"]).items() if n}
     rows67 = path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
                               st6, sh6, dense7)
     print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]
-                      + unpack_rows + unpack_path_rows + rows67 + rows5}))
+                      + unpack_rows + unpack_path_rows + rows7 + rows67
+                      + rows5}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,13 @@ Counterpart of `libacm_tpu/ops/packing.py`. Two wire formats:
   nonzero column is rows*w bits at its filler's width, in three
   class-family bit streams plus width nibbles and a 2-bit class map.
 
-The unpack functions are tensor ops that run on the wire's device; their
-results are bit-identical to the dense coefficients. On a card the
-per-column wire is unpacked by the CUDA kernel of `ops/unpack_cuda.py`
-(`csrc/unpack.cu`); `unpack_columns` is its plain version, which the CPU
-runs and the tests and `chip_smoke.py` hold the kernel to.
+The unpack functions run on the wire's device; their results are
+bit-identical to the dense coefficients. On a card the per-column wire is
+unpacked by the CUDA kernel of `ops/unpack_cuda.py` (`csrc/unpack.cu`),
+and `unpack_blocks` launches the one of `ops/unpack_blocks_cuda.py`
+(`csrc/unpack_blocks.cu`). `unpack_columns` and `unpack_blocks_plain` are
+their plain versions, which the CPU runs and the tests and `chip_smoke.py`
+hold the kernels to.
 """
 
 from __future__ import annotations
@@ -172,7 +174,29 @@ def unpack_blocks(
     idx4: torch.Tensor, idx8: torch.Tensor, idx16: torch.Tensor,
     *, nb: int, rows: int, cols: int,
 ) -> torch.Tensor:
-    """Device-side inverse of pack_blocks → int16 [nb, rows, cols]."""
+    """Device-side inverse of pack_blocks → int16 [nb, rows, cols]. CPU
+    tensors take unpack_blocks_plain; CUDA tensors launch the kernel of
+    ops/unpack_blocks_cuda.py (csrc/unpack_blocks.cu) or raise."""
+    dev = p16.device
+    if dev.type == "cpu":
+        return unpack_blocks_plain(p4, p8, p16, idx4, idx8, idx16, nb=nb,
+                                   rows=rows, cols=cols)
+    if dev.type != "cuda":
+        raise ValueError(f"no unpack_blocks kernel for device {dev}")
+    from .unpack_blocks_cuda import unpack_blocks as kernel_fn
+
+    return kernel_fn(p4, p8, p16, idx4, idx8, idx16, nb=nb, rows=rows,
+                     cols=cols)
+
+
+def unpack_blocks_plain(
+    p4: torch.Tensor, p8: torch.Tensor, p16: torch.Tensor,
+    idx4: torch.Tensor, idx8: torch.Tensor, idx16: torch.Tensor,
+    *, nb: int, rows: int, cols: int,
+) -> torch.Tensor:
+    """unpack_blocks as torch ops (the plain version of the kernel):
+    nibbles sign-extended by arithmetic shifts, three scatters into a
+    zeroed [nb + 1, n] whose row nb takes the padding."""
     n = rows * cols
     # nibbles → int16 with sign extension via arithmetic shifts
     lo = (p4.to(torch.int16) << 12) >> 12

@@ -387,7 +387,9 @@ class DeviceCorpus:
         value for any chunk_files, backend or device list. Each device
         sums its own chunks and the per-device sums (one scalar each) add
         on the host. The int64 sum taken & 0xFFFFFFFF equals the JAX
-        package's wrapped int32 sum modulo 2^32.
+        package's wrapped int32 sum modulo 2^32. On a card the sum is one
+        kernel launch over the device's chunks (ops/checksum_cuda.py); on
+        the CPU it is the same masked sum as torch ops.
 
         The digest is of what lies on the device, as in the JAX package.
         For a stale-amp-table file (hostile streams only) that is the
@@ -396,18 +398,7 @@ class DeviceCorpus:
         does not describe the results. It is a check that two decodes
         left the same tensors on the device, not a digest of the results.
         """
-        tots: dict[torch.device, torch.Tensor] = {}
-        for b in self._buckets:
-            dev = b.pcm.device
-            ng = np.zeros(b.pcm.shape[0], dtype=np.int64)
-            for j, e in enumerate(b.entries):
-                ng[j] = min(e.n_good, b.pcm.shape[1])
-            mask = (torch.arange(b.pcm.shape[1], device=dev)[None, :]
-                    < torch.from_numpy(ng).to(dev)[:, None])
-            per_block = b.pcm.sum(dim=2, dtype=torch.int64)
-            part = torch.where(mask, per_block, 0).sum()
-            tots[dev] = tots[dev] + part if dev in tots else part
-        return sum(int(t.item()) for t in tots.values()) & 0xFFFFFFFF
+        return _sum_all(self._buckets)
 
     def device_arrays(self) -> list[tuple[list[int], torch.Tensor]]:
         """[(file_indices, int16 pcm [B, nb, block_len])] per chunk (per
@@ -433,6 +424,32 @@ class DeviceCorpus:
                 results[e.index] = _finalize(e, host[j].reshape(-1),
                                              block_len)
         return results  # type: ignore[return-value]
+
+
+def _checksum_inputs(
+        buckets: Sequence[_BucketOut]) -> dict[torch.device, tuple]:
+    """{device: ([pcm int16 [B, nb, L]], [n_good int64 [B]])} of the
+    chunks on each device (rows past the chunk's files count 0)."""
+    by_dev: dict[torch.device, tuple[list, list]] = {}
+    for b in buckets:
+        pcms, ngs = by_dev.setdefault(b.pcm.device, ([], []))
+        ng = np.zeros(b.pcm.shape[0], dtype=np.int64)
+        ng[: len(b.entries)] = [e.n_good for e in b.entries]
+        pcms.append(b.pcm)
+        ngs.append(ng)
+    return by_dev
+
+
+def _sum_all(buckets: Sequence[_BucketOut]) -> int:
+    """Masked content digest of the chunks (DeviceCorpus.checksum): each
+    device's chunks in one ops.checksum_cuda.sum_all call (the kernel on a
+    card, torch ops on the CPU), every device's sum queued before the
+    first is fetched; the sums add on the host, modulo 2^32."""
+    from ..ops import checksum_cuda
+
+    sums = [checksum_cuda.sum_all(*chunks)
+            for chunks in _checksum_inputs(buckets).values()]
+    return sum(int(t.item()) for t in sums) & 0xFFFFFFFF
 
 
 def _finalize(e: _FileEntry, pcm_flat: np.ndarray, block_len: int) -> FileResult:

@@ -1,14 +1,16 @@
 """Where the port's CUDA kernels are built: $LIBACM_TPU_TORCH_CACHE when
 set (beside the scanner copy's objects), else `_build/` in the package;
-each source (csrc/synth.cu, csrc/unpack.cu) into its own shared object
-keyed by its hash. nvcc is faked: only the paths are under test."""
+each source (csrc/synth.cu, csrc/unpack.cu, csrc/checksum.cu,
+csrc/unpack_blocks.cu) into its own shared object keyed by its hash. nvcc
+is faked: only the paths are under test."""
 
 import pathlib
 import subprocess
 
 import pytest
 
-from libacm_tpu_torch.ops import synth_cuda, unpack_cuda
+from libacm_tpu_torch.ops import (checksum_cuda, synth_cuda,
+                                  unpack_blocks_cuda, unpack_cuda)
 from libacm_tpu_torch.scan import native
 
 
@@ -108,3 +110,32 @@ def test_unpack_object_follows_its_source(fake_nvcc, monkeypatch, tmp_path):
     second, _ = unpack_cuda.build()
     assert second != first and len(fake_nvcc) == 2
     assert second.name.startswith("unpack-")
+
+
+@pytest.mark.parametrize("mod,stem", [(checksum_cuda, "checksum"),
+                                      (unpack_blocks_cuda, "unpack_blocks")])
+def test_checksum_and_block_unpack_build_under_cache_variable(
+        fake_nvcc, monkeypatch, tmp_path, mod, stem):
+    """csrc/checksum.cu and csrc/unpack_blocks.cu: each its own hash-keyed
+    object in the same directory, built once, beside the others; a
+    changed source builds a new object."""
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("LIBACM_TPU_TORCH_CACHE", str(cache))
+    monkeypatch.setattr(synth_cuda, "_HERE",
+                        pathlib.Path("/proc/no/such/package/ops"))
+    so, report = mod.build()
+    assert so.parent == cache and so.exists() and report == "ptxas info"
+    assert so.name.startswith(f"{stem}-") and so.suffix == ".so"
+    assert so.name[len(stem) + 1:-3].isalnum()  # <stem>-<hash>.so
+    cmd = " ".join(fake_nvcc[0])
+    assert "sm_90a" in cmd and cmd.endswith(f"csrc/{stem}.cu")
+    again, report = mod.build()
+    assert again == so and report == "" and len(fake_nvcc) == 1
+    unpack_so, _ = unpack_cuda.build()
+    assert sorted(p.name for p in cache.iterdir()) == sorted(
+        [so.name, unpack_so.name])
+    src = tmp_path / f"{stem}.cu"
+    src.write_text("// changed")
+    monkeypatch.setattr(mod, "_SRC", src)
+    changed, _ = mod.build()
+    assert changed != so and changed.name.startswith(f"{stem}-")

@@ -571,3 +571,236 @@ def test_unpack_kernel_rejects_bad_input():
         st.unpack_cols_blob(torch.zeros(n, dtype=torch.uint8, device=dev),
                             **odd)
     assert sum(uc.launches.values()) == 0
+
+
+# -- the masked checksum kernel (csrc/checksum.cu) ----------------------------
+
+
+def _pcm_chunks(dev, seed, shapes, offsets, fill=None):
+    """int16 PCM chunks [B, nb, L] on `dev`, each a view offsets[i] words
+    into a larger buffer, and n_good per row (0, nb and partial in turn),
+    from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    pcms, ngs = [], []
+    for (B, nb, L), off in zip(shapes, offsets):
+        data = (np.full((B, nb, L), fill, np.int16) if fill is not None
+                else rng.integers(-32768, 32768, (B, nb, L)).astype(np.int16))
+        buf = torch.zeros(off + data.size, dtype=torch.int16, device=dev)
+        pcm = buf[off:].view(B, nb, L)
+        pcm.copy_(torch.from_numpy(data))
+        pcms.append(pcm)
+        ngs.append(np.array([(0, nb, int(rng.integers(0, nb + 1)))[j % 3]
+                             for j in range(B)], np.int64))
+    return pcms, ngs
+
+
+@pytest.mark.parametrize("shapes,offsets", [
+    ([(25, 320, 2048)], [0]),  # a 7/16 corpus chunk
+    ([(5, 416, 2048)], [0]),  # level 0, rows 2048
+    ([(3, 5, 3)], [1]),  # level 0, rows 3: odd L, odd nb*L
+    ([(4, 7, 3), (2, 9, 40), (3, 4, 256)], [3, 2, 7]),
+    ([(2, 3, 1)], [5]),
+    ([(3, 2, 1 << 15)], [6]),  # rows over several tiles, unaligned
+])
+def test_checksum_kernel_matches_plain(shapes, offsets):
+    from libacm_tpu_torch.ops import checksum_cuda as cc
+
+    dev = _card()
+    pcms, ngs = _pcm_chunks(dev, len(shapes) * 7 + offsets[0], shapes,
+                            offsets)
+    cc.reset_launches()
+    got = int(cc.sum_all(pcms, ngs).item())
+    assert dict(cc.launches) == {"checksum": 1}
+    want = int(cc.sum_all_plain(pcms, ngs).item()) & 0xFFFFFFFF
+    assert got == want
+    cpu = int(cc.sum_all_plain([p.cpu() for p in pcms], ngs)) & 0xFFFFFFFF
+    assert got == cpu
+
+
+def test_checksum_kernel_wraps_past_2_31():
+    from libacm_tpu_torch.ops import checksum_cuda as cc
+
+    dev = _card()
+    pcms, ngs = _pcm_chunks(dev, 0, [(3, 7, 5000)], [1], fill=32767)
+    ngs = [np.array([7, 7, 7])]
+    assert int(cc.sum_all(pcms, ngs).item()) == (105_000 * 32767) & 0xFFFFFFFF
+
+
+def test_checksum_no_good_row_launches_nothing():
+    from libacm_tpu_torch.ops import checksum_cuda as cc
+
+    dev = _card()
+    pcms, _ = _pcm_chunks(dev, 1, [(2, 4, 16)], [0])
+    cc.reset_launches()
+    assert int(cc.sum_all(pcms, [np.zeros(2, np.int64)]).item()) == 0
+    assert sum(cc.launches.values()) == 0
+
+
+def test_checksum_one_launch_a_device_and_three_operations():
+    """checksum() over a corpus sharded over [cuda:0, cuda:0]: one launch
+    (one device), at most three device operations under the profiler (the
+    table's copy, the launch, the scalar's fetch), equal to one device's
+    and to the CPU's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.ops import checksum_cuda as cc
+    from libacm_tpu_torch.parallel import decode_corpus_device
+
+    _card()
+    rng = np.random.default_rng(31)
+    files = [testing.speech_acm_bytes(rng, level=int(rng.choice([0, 4, 7])),
+                                      rows=int(rng.choice([3, 16])),
+                                      n_blocks=int(rng.integers(2, 9)))
+             for _ in range(17)]
+    files[3] = files[3][: len(files[3]) // 2]
+    want = decode_corpus_device(files, device="cpu", chunk_files=3).checksum()
+    one = decode_corpus_device(files, device="cuda", chunk_files=3)
+    two = decode_corpus_device(files, devices=["cuda:0", "cuda:0"],
+                               chunk_files=3).block_until_ready()
+    assert one.checksum() == want
+    cc.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = two.checksum()
+        torch.cuda.synchronize()
+    assert got == want
+    assert dict(cc.launches) == {"checksum": 1}
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert ops <= 3  # 0: the profiler saw no device
+
+
+def test_checksum_kernel_rejects_bad_input():
+    from libacm_tpu_torch.ops import checksum_cuda as cc
+
+    dev = _card()
+    pcm = torch.zeros((2, 3, 8), dtype=torch.int16, device=dev)
+    ng = np.array([3, 1])
+    cc.reset_launches()
+    with pytest.raises(ValueError, match="int16"):
+        cc.sum_all([pcm.to(torch.int32)], [ng])
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.sum_all([pcm.transpose(1, 2).contiguous().transpose(1, 2)], [ng])
+    with pytest.raises(ValueError, match="one device a call"):
+        cc.sum_all([pcm, pcm.cpu()], [ng, ng])
+    with pytest.raises(ValueError, match="n_good must have 2 entries"):
+        cc.sum_all([pcm], [np.array([1, 2, 3])])
+    assert sum(cc.launches.values()) == 0
+
+
+# -- the width-class block unpack kernel (csrc/unpack_blocks.cu) --------------
+
+
+def _packed_on(dev, seed, nb, rows, cols, offsets=(0, 0, 0), pad=True):
+    """(k int16 [nb, rows, cols] of mixed width classes, the six packed
+    tensors on dev) from a numpy seed; p4, p8 and p16 are views offsets[i]
+    elements into larger buffers."""
+    from libacm_tpu_torch.ops import packing
+
+    rng = np.random.default_rng(seed)
+    k = np.zeros((nb, rows, cols), np.int16)
+    for i in range(nb):
+        s = int(rng.choice([8, 128, 32768]))
+        k[i] = rng.integers(-s, s, (rows, cols))
+    pads = (tuple(-(-c // 64) * 64 for c in packing.class_counts(k))
+            if pad else None)
+    pk = packing.pack_blocks(k, pad_to=pads)
+    out = []
+    for f, off in zip(("p4", "p8", "p16"), offsets):
+        a = torch.from_numpy(getattr(pk, f))
+        buf = torch.zeros(off + a.numel(), dtype=a.dtype, device=dev)
+        v = buf[off:].view(a.shape)
+        v.copy_(a)
+        out.append(v)
+    out += [torch.from_numpy(getattr(pk, f)).to(dev)
+            for f in ("idx4", "idx8", "idx16")]
+    return k, out
+
+
+@pytest.mark.parametrize("nb,rows,cols,offsets,pad", [
+    (7500, 16, 128, (0, 0, 0), False),  # 25 files of 7/16: a corpus chunk
+    (300, 40, 16, (0, 0, 0), True),
+    (13, 3, 1, (1, 3, 2), True),  # odd n: rows off 16 bytes
+    (17, 5, 8, (3, 5, 7), False),
+    (6, 3, 512, (2, 1, 1), True),  # blocks over 1,024 words
+    (3, 16, 1 << 15, (0, 0, 0), False),  # 15/16: 64 CTAs a block
+    (9, 33, 512, (1, 2, 3), False),
+])
+def test_unpack_blocks_kernel_matches_plain(nb, rows, cols, offsets, pad):
+    from libacm_tpu_torch.ops import packing
+    from libacm_tpu_torch.ops import unpack_blocks_cuda as ubc
+
+    dev = _card()
+    k, t = _packed_on(dev, nb + rows, nb, rows, cols, offsets, pad)
+    ubc.reset_launches()
+    got = packing.unpack_blocks(*t, nb=nb, rows=rows, cols=cols)
+    torch.cuda.synchronize()
+    assert dict(ubc.launches) == {"unpack_blocks": 1}
+    assert got.device == dev and got.dtype == torch.int16
+    want = packing.unpack_blocks_plain(*t, nb=nb, rows=rows, cols=cols)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), k)
+
+
+def test_unpack_blocks_kernel_skips_padding_and_leaves_zeros():
+    from libacm_tpu_torch.ops import packing
+    from libacm_tpu_torch.ops import unpack_blocks_cuda as ubc
+
+    dev = _card()
+    k, t = _packed_on(dev, 5, 40, 4, 8)
+    t[5] = t[5].clone()
+    gone = int(t[5][0])
+    assert gone < 40  # the seed has 16-bit blocks
+    t[5][0] = 40 + 9  # past the padding slot: names no block
+    got = ubc.unpack_blocks(*t, nb=40, rows=4, cols=8).cpu().numpy()
+    k[gone] = 0
+    np.testing.assert_array_equal(got, k)
+    empty = [x[:0] for x in t]  # no packed row: the fill alone
+    ubc.reset_launches()
+    assert not ubc.unpack_blocks(*empty, nb=40, rows=4, cols=8).any()
+    assert sum(ubc.launches.values()) == 0
+
+
+def test_dense_route_packed_on_the_card(monkeypatch):
+    """pack=True without the scanner: one unpack_blocks launch a chunk,
+    results equal to the host decoder, checksum equal to the cols-wire
+    route's."""
+    from libacm_tpu_torch import testing
+    from libacm_tpu_torch.ops import unpack_blocks_cuda as ubc
+    from libacm_tpu_torch.parallel import (decode_corpus_device,
+                                           decode_corpus_host)
+    from libacm_tpu_torch.scan import native
+
+    _card()
+    rng = np.random.default_rng(41)
+    files = [testing.speech_acm_bytes(rng, level=lv, rows=rw, n_blocks=6)
+             for lv, rw in ((7, 16), (7, 16), (0, 3), (4, 40), (2, 5))]
+    cols = decode_corpus_device(files, device="cuda").checksum()
+    monkeypatch.setattr(native, "available", lambda: False)
+    ubc.reset_launches()
+    dc = decode_corpus_device(files, device="cuda", chunk_files=2)
+    dc.block_until_ready()
+    assert ubc.launches["unpack_blocks"] == len(dc._buckets)
+    assert dc.checksum() == cols
+    for h, g in zip(decode_corpus_host(files), dc.to_results()):
+        assert (h.status, h.filler_words) == (g.status, g.filler_words)
+        np.testing.assert_array_equal(h.pcm, g.pcm)
+
+
+def test_unpack_blocks_kernel_rejects_bad_input():
+    from libacm_tpu_torch.ops import packing
+    from libacm_tpu_torch.ops import unpack_blocks_cuda as ubc
+
+    dev = _card()
+    _, t = _packed_on(dev, 6, 10, 4, 8)
+    kw = dict(nb=10, rows=4, cols=8)
+    ubc.reset_launches()
+    with pytest.raises(ValueError, match="p16 must be torch.int16"):
+        packing.unpack_blocks(*t[:2], t[2].to(torch.int32), *t[3:], **kw)
+    with pytest.raises(ValueError, match="p8 must be torch.int8 of shape"):
+        packing.unpack_blocks(t[0], t[1][:, :-1].contiguous(), *t[2:], **kw)
+    with pytest.raises(ValueError, match="idx4 must be int32"):
+        packing.unpack_blocks(*t[:3], t[3].long(), *t[4:], **kw)
+    with pytest.raises(ValueError, match="is on cpu"):
+        packing.unpack_blocks(t[0].cpu(), *t[1:], **kw)
+    assert sum(ubc.launches.values()) == 0
