@@ -932,38 +932,49 @@ def unpack_shapes(wires: dict[str, list[dict]], window: int) -> list:
 
 
 #: short spin kernels (torch.cuda._sleep) queued at the start of every
-#: profiled window and left out of its counts: in a process that has run
-#: many profiler sessions, the first device activities of a window can go
-#: unrecorded (on an H100, the first two of each window)
+#: profiled window and left out of its counts. On an H100 the profiler at
+#: times records none of a window's first device activities (the first two
+#: of each window late in a long process) or none of its activities at
+#: all, and never drops a later one while it keeps an earlier: so a window
+#: that recorded one of these recorded all of fn's, and one that recorded
+#: none is run again, up to PROFILE_TRIES windows in all.
 PROFILE_GUARD = 4
+PROFILE_TRIES = 3
 
 
 def profiled(torch, fn) -> tuple[float, list]:
     """fn() under torch.profiler, after PROFILE_GUARD spin kernels: (wall
     s, [(device ms, operations, kernel or copy name)] largest first, the
-    spin kernels left out; empty where the profiler saw no device
-    activity)."""
+    spin kernels left out). fn runs again, in a new window, while a
+    window recorded no spin kernel (PROFILE_TRIES windows at most; then
+    the list is empty: the device counts are unknown)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_GUARD):
-            torch.cuda._sleep(1000)
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or "spin_kernel" in ev.key:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        dev.append((us / 1e3, ev.count, ev.key))
-    return wall, sorted(dev, reverse=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_GUARD):
+                torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev, spins = [], 0
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            if "spin_kernel" in ev.key:
+                spins += ev.count
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            dev.append((us / 1e3, ev.count, ev.key))
+        if spins:
+            return wall, sorted(dev, reverse=True)
+    return wall, []
 
 
 def per_call(torch, fn, reps: int) -> dict:
@@ -1069,13 +1080,19 @@ def packed_chunk(native, files, n_files: int = 25):
 
 
 def unpack_blocks_bound(pk) -> tuple[float, str]:
-    """Least time (ms) of one unpack_blocks call: the packed rows and
-    their indices read once and k (2 B a word) written once over HBM
-    bandwidth, against 2 int32 operations a word of the 4- and 8-bit rows
-    (the sign extension's shift pair) over the int32 ALU rate."""
+    """Least time (ms) of one unpack_blocks call: the three index arrays
+    and the payload of the packed rows that name a block (idx in [0, nb);
+    the kernel reads no more of a padding row than its index) read once
+    and k (2 B a word) written once over HBM bandwidth, against 2 int32
+    operations a word of the named 4- and 8-bit rows (the sign
+    extension's shift pair) over the int32 ALU rate."""
     n = pk.rows * pk.cols
-    nbytes = pk.wire_bytes + 2 * pk.nb * n
-    ops = 2 * (len(pk.idx4) + len(pk.idx8)) * n
+    named = [int(((i >= 0) & (i < pk.nb)).sum())
+             for i in (pk.idx4, pk.idx8, pk.idx16)]
+    payload = named[0] * ((n + 1) // 2) + named[1] * n + named[2] * 2 * n
+    nbytes = (payload + pk.idx4.nbytes + pk.idx8.nbytes + pk.idx16.nbytes
+              + 2 * pk.nb * n)
+    ops = 2 * (named[0] + named[1]) * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1109,6 +1126,8 @@ def unpack_blocks_row(torch, pk, dev, path: str, launches: int,
     call = per_call(torch, lambda: packing.unpack_blocks(*t, **kw), reps=10)
     bms, by = unpack_blocks_bound(pk)
     n4, n8, n16 = len(pk.idx4), len(pk.idx8), len(pk.idx16)
+    padding = sum(int(((i < 0) | (i >= pk.nb)).sum())
+                  for i in (pk.idx4, pk.idx8, pk.idx16))
     row = {
         "name": f"unpack_blocks ({pk.rows}x{pk.cols} [{pk.nb}] blocks, "
                 f"{n4}/{n8}/{n16} packed 4/8/16-bit rows)",
@@ -1120,12 +1139,14 @@ def unpack_blocks_row(torch, pk, dev, path: str, launches: int,
         "call_ops": call["ops"],
         "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
         "library_ms": None, "packed_bytes": pk.wire_bytes,
+        "padding_rows": padding,
         "blocks": pk.nb, "rows": pk.rows, "cols": pk.cols,
     }
     log(f"  unpack_blocks {pk.rows}x{pk.cols} [{pk.nb}], {pk.wire_bytes} "
-        f"packed bytes: {ms:.6f} ms ({cold_ms:.6f} with L2 flushed) in "
-        f"{row['call_ops']} device operations, plain {plain_ms:.6f} ms, "
-        f"bound {bms:.6f} ms ({by}), {bms / ms:.1%} of bound {card}")
+        f"packed bytes ({padding} padding rows): {ms:.6f} ms ({cold_ms:.6f} "
+        f"with L2 flushed) in {row['call_ops']} device operations, plain "
+        f"{plain_ms:.6f} ms, bound {bms:.6f} ms ({by}), {bms / ms:.1%} of "
+        f"bound {card}")
     return row
 
 
@@ -1157,8 +1178,7 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
     import libacm_tpu_torch as acm
     from libacm_tpu_torch import io as tio
     from libacm_tpu_torch import testing
-    from libacm_tpu_torch.ops import (checksum_cuda, synth_cuda,
-                                      unpack_blocks_cuda, unpack_cuda)
+    from libacm_tpu_torch.ops import kernels
     from libacm_tpu_torch.parallel import (RandomAccessCorpus, build_index,
                                            corpus)
     from libacm_tpu_torch.scan import native
@@ -1177,10 +1197,8 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
 
     if not native.available():
         raise RuntimeError("the port's C++ scanner did not build")
-    counters = (synth_cuda, unpack_cuda, checksum_cuda, unpack_blocks_cuda)
     if on_card:
-        for mod in counters:
-            mod.build()
+        kernels.build_all()
 
     # -- data ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1203,16 +1221,12 @@ def run_bench(device: str, repeats: int, scale: float, seed: int = 2026, *,
     wires: dict[str, list[dict]] = {}
 
     def counted(path: str, fn):
-        """fn() with every kernel's launch counters (synthesis, unpack,
-        checksum, block unpack) reset before and read after, under `path`;
-        the wires it unpacked go to wires[path]."""
-        for mod in counters:
-            mod.reset_launches()
+        """fn() with every kernel's launch counters reset before and read
+        after, under `path`; the wires it unpacked go to wires[path]."""
+        kernels.reset_all()
         with capture_wires() as got:
             out = fn()
-        launches[path] = {}
-        for mod in counters:
-            launches[path] |= mod.launches
+        launches[path] = kernels.all_launches()
         wires[path] = got
         return out
 

@@ -6,10 +6,11 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. card:    the card's name and power limit (nvidia-smi); build the CUDA
-            synthesis kernels, the cols-wire unpack, the checksum and the
-            block unpack (one nvcc each, sm_90a) and the port's C++
-            scanner, all started together, while a thread encodes phase
-            3's corpus and phase 6's long stream.
+            kernels of ops.kernels.MODULES (the synthesis, the cols-wire
+            unpack, the checksum and the block unpack; one nvcc each,
+            sm_90a) and the port's C++ scanner, all started together,
+            while a thread encodes phase 3's corpus and phase 6's long
+            stream.
 2. parity:  each synthesis route against the plain torch version on the
             card, random inputs from a numpy seed, on the PARITY
             geometries; tolerance 0 (PCM and final carry bit-equal); every
@@ -48,8 +49,8 @@ Phases (any failure exits non-zero, and no result line is printed):
             stale-amp-table seek sequences;
             random access — 300 random windows of 1-50,000 frames over
             the 190-file corpus through RandomAccessCorpus(device="cuda"),
-            equal to backend="host", one unpack launch a segment, at
-            most 4 device operations a segment under the profiler;
+            equal to backend="host", one unpack launch a segment,
+            exactly 4 device operations a segment under the profiler;
             CLI — `acmtool -d -r -o` in process on three fixtures, equal
             to the goldens. The stream and the CLI synthesize dense k: no
             unpack launch.
@@ -66,8 +67,8 @@ Phases (any failure exits non-zero, and no result line is printed):
             object, and the full-file call: PCM, status and filler equal
             to decode_corpus_host of the same bytes, one synthesis launch
             and one unpack call a window, no copy from the card while it
-            decodes (the carry is never fetched) and at most 3.2 device
-            operations a window under the profiler, the copy included; a
+            decodes (the carry is never fetched) and exactly 3 device
+            operations a window and 2 a decode under the profiler; a
             rows == 1 stream (one fused launch a window) and a level-0
             stream (one level-0 launch a window); a
             stale-amp-table stream through the host fallback and through
@@ -100,7 +101,7 @@ Phases (any failure exits non-zero, and no result line is printed):
             the dense route packs it), timed with the L2 warm and flushed
             beside its bound (the checksum beside torch.sum over the same
             tensors), its device operations counted under the profiler
-            (at most 3 a checksum(), at most 2 an unpack_blocks call);
+            (exactly 3 a checksum(), 2 an unpack_blocks call);
             bench — bench_torch.run_bench in process on the card at the
             full corpus width, on phase 3's files and phase 6's stream
             (no second encode), three rounds a group: every card field
@@ -254,10 +255,12 @@ def unpack_parity(torch, unpack_cuda, synth_torch, what: str, wires) -> int:
     """The unpack kernel ≡ its plain version on each wire (dicts with the
     blob on the card), tolerance 0, each call exactly the launches of
     unpack_launches. Returns the number of launches."""
+    from libacm_tpu_torch.ops import kernels
+
     n = 0
     for wire in wires:
         blob, kw = wire["blob"], wire_args(wire)
-        unpack_cuda.reset_launches()
+        kernels.reset_all()
         got = unpack_cuda.unpack_cols_blob(blob, **kw)
         torch.cuda.synchronize()
         launched = dict(unpack_cuda.launches)
@@ -366,7 +369,7 @@ def profile_breakdown(torch, corpus, files, card: str) -> None:
     wall, ranked = _profiled(torch, lambda: out.append(
         corpus.decode_corpus_device(files, device="cuda")))
     print_breakdown("phase 4: decode", wall, ranked, card,
-                    f", host scan {out[0].summary.scan_s * 1e3} ms")
+                    f", host scan {out[-1].summary.scan_s * 1e3} ms")
 
 
 def host_breakdown(torch, fn, label: str, top: int = 8) -> None:
@@ -464,13 +467,12 @@ def phase5_stream(torch, synth_cuda, files, card) -> dict:
     import libacm_tpu_torch as acm
     from libacm_tpu_torch import io as tio
     from libacm_tpu_torch.format import cli_total_bytes
-    from libacm_tpu_torch.ops import unpack_cuda
+    from libacm_tpu_torch.ops import kernels, unpack_cuda
 
     err = acm.AcmException
     fixtures = sorted((ROOT / "tests" / "fixtures").glob("*.acm"))
     check(len(fixtures) >= 20, "tests/fixtures is missing files")
-    synth_cuda.reset_launches()
-    unpack_cuda.reset_launches()
+    kernels.reset_all()
     n = 0
     for path in fixtures:
         card_s = acm.acm_open_file(path, device="cuda")
@@ -555,7 +557,7 @@ def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
     RandomAccessCorpus on the card, each equal to backend="host" (the
     bench's 1,000 windows, each held to the host route too, follow in
     phase 7)."""
-    from libacm_tpu_torch.ops import unpack_cuda
+    from libacm_tpu_torch.ops import kernels, unpack_cuda
     from libacm_tpu_torch.parallel import RandomAccessCorpus
 
     rac = RandomAccessCorpus(corpus_files, device="cuda")
@@ -568,8 +570,7 @@ def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
         rac.pcm_total(i)
         windows.append((i, int(rng.integers(0, max(total, 1))),
                         int(rng.integers(1, 50_001))))
-    synth_cuda.reset_launches()
-    unpack_cuda.reset_launches()
+    kernels.reset_all()
     got = [rac.read(i, s, n) for i, s, n in windows]
     launches = dict(synth_cuda.launches)
     unpacked = dict(unpack_cuda.launches)
@@ -587,29 +588,32 @@ def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
     check(unpacked == unpack_expected(unpack_cuda, sum(launches.values())),
           f"random access: unpack launches {unpacked} for "
           f"{sum(launches.values())} segments")
-    synth_cuda.reset_launches()
-    wall, ranked = _profiled(torch, lambda: [rac.read(*w)
-                                             for w in windows[:100]])
+
+    def window() -> None:
+        kernels.reset_all()  # the launches of the window that is kept
+        for w in windows[:100]:
+            rac.read(*w)
+
+    wall, ranked = _profiled(torch, window)
     print_breakdown("phase 5: 100 random-access windows", wall, ranked, card)
     segs = sum(synth_cuda.launches.values())
     ops = sum(count for _, count, _ in ranked)
     print(f"phase 5: {ops} device operations for {segs} segments, "
           f"{ops / max(segs, 1)} a segment (copies in and out included)")
-    check(not ranked or ops <= 4 * segs,
+    check(segs > 0 and ops == 4 * segs,
           f"random access ran {ops / max(segs, 1)} device operations a "
-          "segment (more than a copy in, the unpack, the synthesis and a "
-          "copy out)")
+          "segment, not 4 (a copy in, the unpack, the synthesis and a copy "
+          "out)")
     return launches | unpacked
 
 
 def phase5_cli(synth_cuda) -> dict:
     """acmtool -d -r -o in process on the card, equal to the goldens."""
     from libacm_tpu_torch import cli
-    from libacm_tpu_torch.ops import unpack_cuda
+    from libacm_tpu_torch.ops import kernels, unpack_cuda
 
     os.environ.pop("LIBACM_TPU_TORCH_DEVICE", None)  # the card
-    synth_cuda.reset_launches()
-    unpack_cuda.reset_launches()
+    kernels.reset_all()
     with tempfile.TemporaryDirectory() as tmp:
         for name in CLI_FIXTURES:
             src = ROOT / "tests" / "fixtures" / f"{name}.acm"
@@ -731,7 +735,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card, data,
     """The windowed stream at full width, on the long stream phase 1
     built. Returns the launches of the whole path and of one decode for
     each (level, rows, W) shape."""
-    from libacm_tpu_torch.ops import unpack_cuda
+    from libacm_tpu_torch.ops import kernels, unpack_cuda
 
     host = corpus.decode_corpus_host([data])[0]
     samples = len(host.pcm)
@@ -754,8 +758,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card, data,
             for kind in ("path", "read()-only"):
                 src = path if kind == "path" else _ReadOnly(data)
                 torch.cuda.synchronize()
-                synth_cuda.reset_launches()
-                unpack_cuda.reset_launches()
+                kernels.reset_all()
                 t0 = time.perf_counter()
                 pcm, meta = corpus.decode_stream_device(
                     src, device=dev, window_blocks=W)
@@ -802,20 +805,18 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card, data,
         print(f"phase 6: stream W={STREAM_WINDOWS[0]}: {ops} device "
               f"operations for {n_win} windows, {ops / n_win} a window, copy "
               "included")
-        check(not ranked or ops / n_win <= 3.2,
-              f"the windowed stream ran {ops / n_win} device operations a "
-              "window (more than the copy, the unpack and the synthesis, "
-              "and one fill and one cat a decode)")
-        if ranked:
-            print("phase 6: no device-to-host copy in the profiled "
-                  "windowed decode: the carry was never fetched")
-        _stream_equal(*out[0], host, "profiled windowed decode")
+        check(ops == 3 * n_win + 2,
+              f"the windowed stream ran {ops} device operations for "
+              f"{n_win} windows, not the copy, the unpack and the "
+              "synthesis a window and one fill and one cat a decode")
+        print("phase 6: no device-to-host copy in the profiled windowed "
+              "decode: the carry was never fetched")
+        _stream_equal(*out[-1], host, "profiled windowed decode")
         del out
         host_breakdown(torch, lambda: corpus.decode_stream_device(
             path, device=dev, window_blocks=STREAM_WINDOWS[0]),
             f"phase 6: stream W={STREAM_WINDOWS[0]}")
-        synth_cuda.reset_launches()
-        unpack_cuda.reset_launches()
+        kernels.reset_all()
         t0 = time.perf_counter()
         pcm, meta = corpus.decode_stream_device(path, device=dev)
         torch.cuda.synchronize()
@@ -839,8 +840,7 @@ def phase6_stream(torch, synth_cuda, corpus, testing, dev, card, data,
         d = testing.speech_acm_bytes(rng, level=level, rows=rows,
                                      n_blocks=nb)
         h = corpus.decode_corpus_host([d])[0]
-        synth_cuda.reset_launches()
-        unpack_cuda.reset_launches()
+        kernels.reset_all()
         pcm, meta = corpus.decode_stream_device(_ReadOnly(d), device=dev,
                                                 window_blocks=W)
         torch.cuda.synchronize()
@@ -941,12 +941,10 @@ def phase6_sharded(torch, synth_cuda, corpus, files, host, checksum3,
                   and (h.pcm is None or np.array_equal(g.pcm, h.pcm)),
                   f"{what}: file {h.index} PCM differs from the host decode")
 
-    from libacm_tpu_torch.ops import checksum_cuda, unpack_cuda
+    from libacm_tpu_torch.ops import checksum_cuda, kernels, unpack_cuda
 
     twice = [torch.device("cuda", 0)] * 2
-    synth_cuda.reset_launches()
-    unpack_cuda.reset_launches()
-    checksum_cuda.reset_launches()
+    kernels.reset_all()
     dc = corpus.decode_corpus_device(files, devices=twice)
     dc.block_until_ready().checksum()
     launches = dict(synth_cuda.launches)
@@ -1062,7 +1060,7 @@ def phase6_processes(files, summary3, checksum3) -> dict:
               f"a rank decoded on {s['device']}, not on the card")
         for kernel in launches:
             launches[kernel] += s["launches"][kernel]
-    check(all(launches[k] for k in CORPUS_KERNELS),
+    check(all(launches[k] for k in CORPUS_KERNELS + (UNPACK_ROUTE,)),
           f"two processes: launches {launches}: a kernel ran no time")
     check(launches["checksum"] == 2,
           f"two processes: checksum launches {launches['checksum']}, not "
@@ -1147,7 +1145,7 @@ def phase7_dense(torch, synth_cuda, corpus, native, testing, files,
     synthesis routes launched. Returns each decode's launches (the
     checksum's included) and the pack=False decode's largest group per
     route."""
-    from libacm_tpu_torch.ops import checksum_cuda, unpack_blocks_cuda
+    from libacm_tpu_torch.ops import kernels
 
     firsts = np.cumsum([0] + [m[1] for m in MIX])[:-1]
     full = [files[i + j] for i in firsts for j in (0, 1)] + files[-5:]
@@ -1164,15 +1162,13 @@ def phase7_dense(torch, synth_cuda, corpus, native, testing, files,
         if not kw:
             native.available = lambda: False  # for this call only
         try:
-            for mod in (synth_cuda, checksum_cuda, unpack_blocks_cuda):
-                mod.reset_launches()
+            kernels.reset_all()
             t0 = time.perf_counter()
             dc = corpus.decode_corpus_device(subset, device="cuda", **kw)
             dc.block_until_ready()
             wall = time.perf_counter() - t0
             dc.checksum()
-            launches = (dict(synth_cuda.launches) | checksum_cuda.launches
-                        | unpack_blocks_cuda.launches)
+            launches = kernels.all_launches()
         finally:
             native.available = scanner
         check(launches["checksum"] == 1
@@ -1205,7 +1201,7 @@ def phase7_kernels(torch, native, corpus, files, dev, card,
     held to its plain version (a mismatch fails), timed with the L2 warm
     and flushed beside its bound, its device operations counted under the
     profiler (bench_torch.checksum_row, unpack_blocks_row): checksum()
-    over the whole corpus's PCM (10 chunks, one launch, at most three
+    over the whole corpus's PCM (10 chunks, one launch, exactly three
     operations: the span table's copy, the launch, the scalar's fetch;
     torch.sum over the same tensors as its library yardstick), and
     unpack_blocks on the mix's first 25 speech files packed as the dense
@@ -1216,9 +1212,11 @@ def phase7_kernels(torch, native, corpus, files, dev, card,
     dc.block_until_ready()
     (pcms, ngs), = corpus._checksum_inputs(dc._buckets).values()
     ck = bench_torch.checksum_row(torch, pcms, ngs, checksum_launches, card)
-    # 0: the profiler saw no device activity (the count is not measured)
-    check(ck["call_ops"] <= 3, f"phase 7: checksum() made {ck['call_ops']} "
-          "device operations on one device, more than 3")
+    # bench_torch.profiled's guard keeps the profiler from losing the
+    # first activities of its window, so the count is exact
+    check(ck["call_ops"] == 3, f"phase 7: checksum() made {ck['call_ops']} "
+          "device operations on one device, not 3 (the table's copy, the "
+          "launch, the scalar's fetch)")
     print(f"phase 7: checksum kernel over {ck['words']} PCM words in "
           f"{ck['chunks']} chunks ({ck['spans']} spans, {ck['tiles']} tiles), "
           f"equal to its plain version: kernel {ck['ms']:.6f} ms "
@@ -1232,11 +1230,12 @@ def phase7_kernels(torch, native, corpus, files, dev, card,
     ub = bench_torch.unpack_blocks_row(
         torch, bench_torch.packed_chunk(native, files), dev,
         "dense_route_packed", packed_launches, card)
-    check(ub["call_ops"] <= 2, f"phase 7: unpack_blocks made "
-          f"{ub['call_ops']} device operations, more than the fill and one "
-          "launch")
+    check(ub["call_ops"] == 2, f"phase 7: unpack_blocks made "
+          f"{ub['call_ops']} device operations, not 2 (the fill and one "
+          "launch)")
     print(f"phase 7: unpack_blocks kernel 7/16 [{ub['blocks']} blocks], "
-          f"{ub['packed_bytes']} packed bytes, equal to its plain version: "
+          f"{ub['packed_bytes']} packed bytes ({ub['padding_rows']} padding "
+          f"rows), equal to its plain version: "
           f"{ub['ms']:.6f} ms ({ub['cold_l2_ms']:.6f} ms with L2 flushed) in "
           f"{ub['call_ops']} device operations, plain {ub['plain_ms']:.6f} ms,"
           f" bound {ub['bound_ms']:.6f} ms ({ub['bound_by']}), "
@@ -1291,8 +1290,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from libacm_tpu_torch import testing
-    from libacm_tpu_torch.ops import (checksum_cuda, synth_cuda, synth_torch,
-                                      unpack_blocks_cuda, unpack_cuda)
+    from libacm_tpu_torch.ops import (checksum_cuda, kernels, synth_cuda,
+                                      synth_torch, unpack_cuda)
     from libacm_tpu_torch.parallel import build_index, corpus
     from libacm_tpu_torch.scan import native
 
@@ -1318,11 +1317,6 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     scanner_ok: list[bool] = []
     th = threading.Thread(target=lambda: scanner_ok.append(native.available()))
-    # one nvcc per CUDA source, all started together
-    built: dict = {}
-    others = (unpack_cuda, checksum_cuda, unpack_blocks_cuda)
-    build_threads = [threading.Thread(target=lambda m=m: built.__setitem__(
-        m.__name__, (m.build(), time.perf_counter()))) for m in others]
     # the corpus and phase 6's long stream are encoded (pure Python and
     # numpy) while the compilers run in their own processes
     encoded: list = []
@@ -1338,24 +1332,16 @@ def main() -> int:
     enc = threading.Thread(target=encode)
     t0 = time.perf_counter()
     th.start()
-    for b in build_threads:
-        b.start()
     enc.start()
-    so, ptxas = synth_cuda.build()
-    t_nvcc = time.perf_counter() - t0
-    for b in build_threads:
-        b.join()
+    built = kernels.build_all()  # one nvcc per CUDA source, all at once
     th.join()
     t_builds = time.perf_counter() - t0
     check(scanner_ok == [True], "the port's C++ scanner did not build")
-    missing = [m.__name__ for m in others if m.__name__ not in built]
-    check(not missing, f"kernels not built: {missing}")
-    print(f"phase 1: built {so.name} (nvcc {t_nvcc:.1f} s), "
-          + ", ".join(f"{so_.name} (nvcc {t_ - t0:.1f} s)"
-                      for (so_, _), t_ in built.values())
+    print("phase 1: built "
+          + ", ".join(f"{so.name} (nvcc {t:.1f} s)"
+                      for so, _, t in built.values())
           + f" and the scanner ({t_builds:.1f} s for all)")
-    for line in (ptxas + "".join(r for (_, r), _ in built.values())
-                 ).splitlines():
+    for line in "".join(r for _, r, _ in built.values()).splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
@@ -1370,7 +1356,7 @@ def main() -> int:
         k, v, w = _random_inputs(torch, dev, level, rows, B, nb,
                                  seed=level * 131 + rows)
         route = kernel_route(synth_cuda, level, rows, nb)
-        synth_cuda.reset_launches()
+        kernels.reset_all()
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         torch.cuda.synchronize()
         launched = dict(synth_cuda.launches)
@@ -1416,8 +1402,7 @@ def main() -> int:
           f"({sum(map(len, files)) / 1e6:.1f} MB) in {t_enc - t0:.1f} s, "
           f"and the long stream in {t_stream:.1f} s, beside the builds")
     # the main path: the decode and its checksum, as the bench times them
-    for mod in (synth_cuda, unpack_cuda, checksum_cuda):
-        mod.reset_launches()
+    kernels.reset_all()
     t0 = time.perf_counter()
     dc = corpus.decode_corpus_device(files, device="cuda")
     dc.block_until_ready()

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import synth_cuda
+from .kernels import Launches
 
 _SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "checksum.cu"
 
@@ -39,21 +40,11 @@ CTAS_PER_SM = 8
 SPAN_WORDS = 4
 
 #: launches per kernel since the last reset_launches()
-launches = {"checksum": 0}
+launches = Launches("checksum")
+reset_launches = launches.reset
 
 _lib = None
 _LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _LOCK:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _LOCK:
-        launches[kernel] += 1
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -183,4 +174,4 @@ def launch(table: torch.Tensor, nspans: int, tiles: int) -> None:
         rc = lib.acm_checksum(table.data_ptr(), nspans, tiles, grid, stream)
     if rc:
         raise RuntimeError(f"checksum_kernel launch failed: cudaError {rc}")
-    _count("checksum")
+    launches.count("checksum")

@@ -55,6 +55,7 @@ import threading
 import torch
 
 from . import synth_torch
+from .kernels import Launches
 
 _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE.parent / "csrc" / "synth.cu"
@@ -87,23 +88,12 @@ TAIL_STRIDE = 1024
 TAIL_TILE = 8192
 
 #: launches per kernel since the last reset_launches()
-launches = {"synth_fused": 0, "synth_level0": 0, "synth_pass": 0,
-            "synth_tail": 0}
+launches = Launches("synth_fused", "synth_level0", "synth_pass",
+                    "synth_tail")
+reset_launches = launches.reset
 
 _lib = None
 _LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _LOCK:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count(route: str) -> None:
-    # dispatch threads of several decodes may launch at once
-    with _LOCK:
-        launches[route] += 1
 
 
 def _nvcc() -> str:
@@ -402,7 +392,7 @@ def synth_pcm_batch(
             if rc:
                 raise RuntimeError(f"synth_level0_kernel launch failed: "
                                    f"cudaError {rc}")
-            _count("synth_level0")
+            launches.count("synth_level0")
             return pcm, wrapf
         cfg = fused_config(level, rows, B, nb, dev)
         if cfg:
@@ -414,7 +404,7 @@ def synth_pcm_batch(
             if rc:
                 raise RuntimeError(f"synth_fused_kernel launch failed: "
                                    f"cudaError {rc}")
-            _count("synth_fused")
+            launches.count("synth_fused")
             return pcm, wrapf
         # a block fits no CTA: the wide passes flat, then the tail in tiles
         L = nb * n
@@ -434,7 +424,7 @@ def synth_pcm_batch(
             if rc:
                 raise RuntimeError(f"synth_pass_kernel launch failed (pass "
                                    f"{p}): cudaError {rc}")
-            _count("synth_pass")
+            launches.count("synth_pass")
             src = dst
         rc = lib.acm_synth_tail(
             k.data_ptr(), src.data_ptr() if src is not None else None,
@@ -445,5 +435,5 @@ def synth_pcm_batch(
         if rc:
             raise RuntimeError(f"synth_tail_kernel launch failed: cudaError "
                                f"{rc}")
-        _count("synth_tail")
+        launches.count("synth_tail")
     return pcm, wrapf

@@ -24,6 +24,7 @@ import threading
 import torch
 
 from . import synth_cuda
+from .kernels import Launches
 
 _SRC = (pathlib.Path(__file__).resolve().parent.parent / "csrc"
         / "unpack_blocks.cu")
@@ -35,21 +36,11 @@ CHUNK = 8192
 _MAX_GRID_X = (1 << 31) - 1
 
 #: launches per kernel since the last reset_launches()
-launches = {"unpack_blocks": 0}
+launches = Launches("unpack_blocks")
+reset_launches = launches.reset
 
 _lib = None
 _LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _LOCK:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _LOCK:
-        launches[kernel] += 1
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -134,5 +125,5 @@ def unpack_blocks(
     if rc:
         raise RuntimeError(f"unpack_blocks_kernel launch failed: "
                            f"cudaError {rc}")
-    _count("unpack_blocks")
+    launches.count("unpack_blocks")
     return out

@@ -29,6 +29,7 @@ import threading
 import torch
 
 from . import synth_cuda, synth_torch
+from .kernels import Launches
 
 _SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "unpack.cu"
 
@@ -53,21 +54,11 @@ EPOCHS = 1 << 24
 SCRATCH_WORDS = 1 << 16
 
 #: launches per kernel since the last reset_launches()
-launches = {"unpack": 0}
+launches = Launches("unpack")
+reset_launches = launches.reset
 
 _lib = None
 _LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _LOCK:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _LOCK:
-        launches[kernel] += 1
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -253,5 +244,5 @@ def unpack_cols_blob(
             wrap0.data_ptr() if wrap0 is not None else None, k.data_ptr(),
             p["grid"], p["smem"], stream), "unpack")
         s.tickets += p["grid"]
-    _count("unpack")
+    launches.count("unpack")
     return k, vals, wrap0

@@ -22,7 +22,7 @@ def main() -> int:
     device = sys.argv[5] if len(sys.argv) > 5 else None
     import torch.distributed as tdist
 
-    from libacm_tpu_torch.ops import checksum_cuda, synth_cuda
+    from libacm_tpu_torch.ops import kernels
     from libacm_tpu_torch.parallel import decode_corpus_device
     from libacm_tpu_torch.parallel import distributed as dist
 
@@ -43,8 +43,7 @@ def main() -> int:
         print("SHARD " + json.dumps(
             {"files": len(mine), "checksum": local_sum,
              "device": str(out.device),
-             "launches": dict(synth_cuda.launches)
-             | dict(checksum_cuda.launches)}), flush=True)
+             "launches": kernels.all_launches()}), flush=True)
     finally:
         tdist.destroy_process_group()
     return 0

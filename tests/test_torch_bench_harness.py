@@ -293,6 +293,84 @@ def test_bound_says_what_bounds_it(bench):
     assert bench.bound(0, 2048, 5, 416)[1] == "bytes"
 
 
+@pytest.mark.parametrize("nb,rows,cols", [(50, 3, 5), (130, 16, 128)])
+def test_block_unpack_bound_reads_no_padding_payload(bench, nb, rows, cols):
+    """unpack_blocks_bound counts the payload of the packed rows that name
+    a block, the index arrays and k once; a padding row (idx == nb) adds
+    its 4-byte index and none of its payload, which the kernel never
+    reads."""
+    import numpy as np
+
+    from libacm_tpu_torch.ops import packing
+
+    rng = np.random.default_rng(nb)
+    n = rows * cols
+    k = np.zeros((nb, n), np.int16)
+    for i in range(nb):
+        s = int(rng.choice([8, 128, 32768]))
+        k[i] = rng.integers(-s, s, n)
+    k = k.reshape(nb, rows, cols)
+    c4, c8, c16 = packing.class_counts(k)
+    assert min(c4, c8, c16) > 0
+    want = c4 * ((n + 1) // 2) + c8 * n + c16 * 2 * n + 4 * nb + 2 * nb * n
+    ms, by = bench.unpack_blocks_bound(packing.pack_blocks(k))
+    assert by == "bytes"
+    assert ms == pytest.approx(want / bench.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    pads = tuple(-(-c // 64) * 64 for c in (c4, c8, c16))
+    padded = packing.pack_blocks(k, pad_to=pads)
+    n_pad = sum(pads) - nb
+    assert n_pad > 0
+    ms_pad, _ = bench.unpack_blocks_bound(padded)
+    assert ms_pad == pytest.approx(
+        (want + 4 * n_pad) / bench.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    hbm = bench.HBM_BYTES_PER_S
+    assert ms_pad < (padded.wire_bytes + 2 * nb * n) / hbm * 1e3
+
+
+def test_profiled_keeps_only_a_window_that_recorded_a_spin_kernel(
+        bench, monkeypatch):
+    """profiled runs fn again while a window recorded none of its spin
+    kernels (the profiler may have lost fn's first activities too), keeps
+    the first window that did, leaves the spin kernels and host events
+    out, and returns no counts after PROFILE_TRIES windows without one."""
+    import types
+
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    def ev(key, count, dev=DeviceType.CUDA):
+        return types.SimpleNamespace(key=key, count=count, device_type=dev,
+                                     self_device_time_total=1000.0 * count)
+
+    windows = []
+
+    class Window:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return windows.pop(0)
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Window())
+    card = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, _sleep=lambda cycles: None))
+    calls = []
+    windows += [[ev("checksum_kernel", 1)],  # lost its spin kernels
+                [ev("spin_kernel", 2), ev("Memcpy HtoD", 1),
+                 ev("checksum_kernel", 1), ev("aten::sum", 1, DeviceType.CPU)]]
+    _, ranked = bench.profiled(card, lambda: calls.append(1))
+    assert len(calls) == 2 and not windows
+    assert sorted((c, k) for _, c, k in ranked) == [
+        (1, "Memcpy HtoD"), (1, "checksum_kernel")]
+    windows += [[ev("checksum_kernel", 1)]] * bench.PROFILE_TRIES
+    calls.clear()
+    _, ranked = bench.profiled(card, lambda: calls.append(1))
+    assert ranked == [] and len(calls) == bench.PROFILE_TRIES
+
+
 # -- the parity-sweep parser --------------------------------------------------
 
 _OK = "level {lv:2d} rows {rows:4d} {route:11s} {what:14s}: OK\n"

@@ -1,15 +1,17 @@
 """Where the port's CUDA kernels are built: $LIBACM_TPU_TORCH_CACHE when
 set (beside the scanner copy's objects), else `_build/` in the package;
 each source (csrc/synth.cu, csrc/unpack.cu, csrc/checksum.cu,
-csrc/unpack_blocks.cu) into its own shared object keyed by its hash. nvcc
-is faked: only the paths are under test."""
+csrc/unpack_blocks.cu) into its own shared object keyed by its hash, all
+of them through ops.kernels, which also resets and reads every launch
+counter. nvcc is faked: only the paths are under test."""
 
 import pathlib
 import subprocess
+import threading
 
 import pytest
 
-from libacm_tpu_torch.ops import (checksum_cuda, synth_cuda,
+from libacm_tpu_torch.ops import (checksum_cuda, kernels, synth_cuda,
                                   unpack_blocks_cuda, unpack_cuda)
 from libacm_tpu_torch.scan import native
 
@@ -139,3 +141,68 @@ def test_checksum_and_block_unpack_build_under_cache_variable(
     monkeypatch.setattr(mod, "_SRC", src)
     changed, _ = mod.build()
     assert changed != so and changed.name.startswith(f"{stem}-")
+
+
+def test_build_all_builds_every_source_once(fake_nvcc, monkeypatch,
+                                            tmp_path):
+    """ops.kernels.build_all: one nvcc for each CUDA source of the
+    package, every csrc/*.cu, each into its own object; then cached."""
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("LIBACM_TPU_TORCH_CACHE", str(cache))
+    built = kernels.build_all()
+    assert list(built) == list(kernels.MODULES)
+    sources = sorted(pathlib.Path(cmd[-1]).name for cmd in fake_nvcc)
+    csrc = pathlib.Path(synth_cuda.__file__).resolve().parent.parent / "csrc"
+    assert sources == sorted(p.name for p in csrc.glob("*.cu"))
+    assert sorted(p.name for p in cache.iterdir()) == sorted(
+        so.name for so, _, _ in built.values())
+    assert all(report == "ptxas info" and t >= 0
+               for _, report, t in built.values())
+    again = kernels.build_all()
+    assert len(fake_nvcc) == len(kernels.MODULES)
+    assert [so for so, _, _ in again.values()] == [
+        so for so, _, _ in built.values()]
+
+
+def test_every_kernel_module_is_listed():
+    """Every ops module that builds a kernel is in kernels.MODULES, with
+    one Launches counter that its reset_launches resets."""
+    ops = pathlib.Path(kernels.__file__).parent
+    with_build = sorted(p.stem for p in ops.glob("*.py")
+                        if "\ndef build(" in p.read_text())
+    assert with_build == sorted(kernels.MODULES)
+    for mod in kernels.modules():
+        assert isinstance(mod.launches, kernels.Launches) and mod.launches
+        name = next(iter(mod.launches))
+        mod.launches.count(name)
+        assert mod.launches[name] >= 1
+        mod.reset_launches()
+        assert not any(mod.launches.values())
+
+
+def test_reset_all_and_all_launches():
+    """all_launches merges every module's counts into one new dict;
+    reset_all sets every one to 0; counts from many threads add up."""
+    kernels.reset_all()
+    names = [k for mod in kernels.modules() for k in mod.launches]
+    assert kernels.all_launches() == dict.fromkeys(names, 0)
+    assert len(names) == len(set(names))  # no kernel named twice
+
+    def bump():
+        for _ in range(1000):
+            checksum_cuda.launches.count("checksum")
+            unpack_blocks_cuda.launches.count("unpack_blocks")
+
+    threads = [threading.Thread(target=bump) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    synth_cuda.launches.count("synth_tail")
+    got = kernels.all_launches()
+    assert got == dict.fromkeys(names, 0) | {
+        "checksum": 8000, "unpack_blocks": 8000, "synth_tail": 1}
+    got["checksum"] = -1  # a copy: the counters are untouched
+    assert checksum_cuda.launches["checksum"] == 8000
+    kernels.reset_all()
+    assert not any(kernels.all_launches().values())
