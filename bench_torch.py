@@ -1081,14 +1081,20 @@ def packed_chunk(native, files, n_files: int = 25):
 
 def unpack_blocks_bound(pk) -> tuple[float, str]:
     """Least time (ms) of one unpack_blocks call: the three index arrays
-    and the payload of the packed rows that name a block (idx in [0, nb);
-    the kernel reads no more of a padding row than its index) read once
-    and k (2 B a word) written once over HBM bandwidth, against 2 int32
-    operations a word of the named 4- and 8-bit rows (the sign
+    and the payload of each block's owner row read once (by the JAX
+    package's index rules: an idx below 0 names block idx + nb + 1, one
+    outside [0, nb) after that names none, and of rows naming one block
+    the latest class's; the kernel reads no other row's payload) and k
+    (2 B a word) written once over HBM bandwidth, against 2 int32
+    operations a word of the 4- and 8-bit owner rows (the sign
     extension's shift pair) over the int32 ALU rate."""
     n = pk.rows * pk.cols
-    named = [int(((i >= 0) & (i < pk.nb)).sum())
-             for i in (pk.idx4, pk.idx8, pk.idx16)]
+    owner = np.full(pk.nb, -1)
+    for c, idx in enumerate((pk.idx4, pk.idx8, pk.idx16)):
+        b = np.asarray(idx, np.int64)
+        b = np.where(b < 0, b + pk.nb + 1, b)
+        owner[b[(b >= 0) & (b < pk.nb)]] = c
+    named = [int((owner == c).sum()) for c in range(3)]
     payload = named[0] * ((n + 1) // 2) + named[1] * n + named[2] * 2 * n
     nbytes = (payload + pk.idx4.nbytes + pk.idx8.nbytes + pk.idx16.nbytes
               + 2 * pk.nb * n)
@@ -1100,9 +1106,9 @@ def unpack_blocks_bound(pk) -> tuple[float, str]:
 
 def unpack_blocks_row(torch, pk, dev, path: str, launches: int,
                       card: str) -> dict:
-    """ops.packing.unpack_blocks on pk's tensors on the card (the fill and
-    the kernel) held to unpack_blocks_plain on the same tensors (tolerance
-    0), both timed by CUDA events over 20 calls (L2 warm, and flushed
+    """ops.packing.unpack_blocks on pk's tensors on the card (one launch)
+    held to unpack_blocks_plain on the same tensors (tolerance 0), both
+    timed by CUDA events over 20 calls (L2 warm, and flushed
     before each), the call's device operations (per_call), the bound,
     and `launches` on `path`."""
     from libacm_tpu_torch.ops import packing

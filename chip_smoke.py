@@ -101,7 +101,7 @@ Phases (any failure exits non-zero, and no result line is printed):
             the dense route packs it), timed with the L2 warm and flushed
             beside its bound (the checksum beside torch.sum over the same
             tensors), its device operations counted under the profiler
-            (exactly 3 a checksum(), 2 an unpack_blocks call);
+            (exactly 3 a checksum(), 1 an unpack_blocks call);
             bench — bench_torch.run_bench in process on the card at the
             full corpus width, on phase 3's files and phase 6's stream
             (no second encode), three rounds a group: every card field
@@ -1205,7 +1205,8 @@ def phase7_kernels(torch, native, corpus, files, dev, card,
     operations: the span table's copy, the launch, the scalar's fetch;
     torch.sum over the same tensors as its library yardstick), and
     unpack_blocks on the mix's first 25 speech files packed as the dense
-    route packs a chunk (7/16, 7,500 blocks; the fill and one launch).
+    route packs a chunk (7/16, 7,500 blocks; exactly one operation: the
+    launch, no fill).
     Returns the two JSON rows, with the launches of the paths that ran
     them (phase 3's corpus; phase 7's dense route with pack=True)."""
     dc = corpus.decode_corpus_device(files, device="cuda")
@@ -1230,9 +1231,8 @@ def phase7_kernels(torch, native, corpus, files, dev, card,
     ub = bench_torch.unpack_blocks_row(
         torch, bench_torch.packed_chunk(native, files), dev,
         "dense_route_packed", packed_launches, card)
-    check(ub["call_ops"] == 2, f"phase 7: unpack_blocks made "
-          f"{ub['call_ops']} device operations, not 2 (the fill and one "
-          "launch)")
+    check(ub["call_ops"] == 1, f"phase 7: unpack_blocks made "
+          f"{ub['call_ops']} device operations, not 1 (the launch)")
     print(f"phase 7: unpack_blocks kernel 7/16 [{ub['blocks']} blocks], "
           f"{ub['packed_bytes']} packed bytes ({ub['padding_rows']} padding "
           f"rows), equal to its plain version: "

@@ -195,8 +195,13 @@ def unpack_blocks_plain(
     *, nb: int, rows: int, cols: int,
 ) -> torch.Tensor:
     """unpack_blocks as torch ops (the plain version of the kernel):
-    nibbles sign-extended by arithmetic shifts, three scatters into a
-    zeroed [nb + 1, n] whose row nb takes the padding."""
+    nibbles sign-extended by arithmetic shifts, three scatters (4-bit,
+    8-bit, 16-bit, so a later class wins a block two name) into a zeroed
+    [nb + 1, n] whose row nb takes the padding. Indices follow the JAX
+    package's rules: an idx below 0 names block idx + nb + 1, and one
+    whose block lies outside [0, nb] goes to row nb too, so it names
+    none. Two rows of one class naming one block are outside the
+    contract (the order of their writes is open, as in JAX)."""
     n = rows * cols
     # nibbles → int16 with sign extension via arithmetic shifts
     lo = (p4.to(torch.int16) << 12) >> 12
@@ -204,7 +209,8 @@ def unpack_blocks_plain(
     f4 = torch.stack([lo, hi], dim=-1).reshape(p4.shape[0],
                                                2 * p4.shape[1])[:, :n]
     out = torch.zeros((nb + 1, n), dtype=torch.int16, device=p16.device)
-    out[idx4.long()] = f4
-    out[idx8.long()] = p8.to(torch.int16)
-    out[idx16.long()] = p16.to(torch.int16)
+    for idx, vals in ((idx4, f4), (idx8, p8), (idx16, p16)):
+        i = idx.long()
+        i = torch.where(i < 0, i + nb + 1, i)
+        out[torch.where((i >= 0) & (i <= nb), i, nb)] = vals.to(torch.int16)
     return out[:nb].reshape(nb, rows, cols)

@@ -10,9 +10,12 @@ shared object) and bound with ctypes through a plain C interface.
 
 `ops.packing.unpack_blocks` dispatches by device: CPU tensors take
 `packing.unpack_blocks_plain`, CUDA tensors this module's
-`unpack_blocks`, which launches the kernel or raises. A call is one fill
-of the output with zeros (the blocks no list names) and, where there is a
-packed row and a word a block, one launch (`plan` says how it is cut).
+`unpack_blocks`, which launches the kernel or raises. A call with a word
+to write is one launch and no other device operation: stamp tickets
+resolve which packed row owns each block, output tickets write every word
+of k once, from its owner row or as zero (`plan` says how it is cut). The
+owner words and counters live in a scratch buffer kept per device and
+stream (`_Scratch`): each call takes a new epoch, so they need no reset.
 """
 
 from __future__ import annotations
@@ -23,16 +26,23 @@ import threading
 
 import torch
 
-from . import synth_cuda
+from . import synth_cuda, unpack_cuda
 from .kernels import Launches
 
 _SRC = (pathlib.Path(__file__).resolve().parent.parent / "csrc"
         / "unpack_blocks.cu")
 
-#: threads a CTA (csrc/unpack_blocks.cu), and the words of a packed row
-#: one CTA writes (a multiple of 8; passed to the kernel)
+#: the kernel's constants (csrc/unpack_blocks.cu): threads a CTA; words
+#: an output ticket writes (a pass); the owner word's epoch shift; the
+#: scratch words of the stamp count and of the first owner word (the
+#: ticket counter is word 0); the most blocks a pass may span and still
+#: read their owner words once into shared memory
 THREADS = 256
-CHUNK = 8192
+PASS = 8192
+EPOCH_SHIFT = 40
+DONE = 16
+OWNERS = 32
+OWN_CACHE = 64
 _MAX_GRID_X = (1 << 31) - 1
 
 #: launches per kernel since the last reset_launches()
@@ -59,21 +69,49 @@ def _load():
             vp, ll = ctypes.c_void_p, ctypes.c_longlong
             lib.acm_unpack_blocks.restype = ctypes.c_int
             lib.acm_unpack_blocks.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp,  # p4, p8, p16, idx4/8/16, out
-                ll, ll, ll, ll,  # n4, n8, nb, n
-                ll, ll, ll, vp,  # chunk, splits, grid, stream
+                vp, vp, vp, vp, vp, vp,  # p4, p8, p16, idx4, idx8, idx16
+                vp, vp,  # out, scratch
+                ll, ll, ll, ll, ll,  # n4, n8, n16, nb, n
+                ll, ll,  # nstamp, grid
+                ll, ll, ll, vp,  # epoch, ticket0, done0, stream
             ]
             _lib = lib
     return _lib
 
 
-def plan(n4: int, n8: int, n16: int, n: int, nb: int) -> tuple[int, int]:
-    """(parts a packed row, CTAs): packed rows of the three classes in
-    turn (4-bit, 8-bit, 16-bit), each cut into ceil(n / CHUNK) parts of
-    CHUNK words, one CTA a part; (0, 0) where there is nothing to write
-    (no packed row, no word a block, or no block)."""
-    splits = -(-n // CHUNK) if n > 0 and nb > 0 else 0
-    return splits, (n4 + n8 + n16) * splits
+def plan(n4: int, n8: int, n16: int, n: int, nb: int) -> dict:
+    """The launch of one call: `nstamp` stamp CTAs (THREADS packed rows
+    each, the three classes' rows numbered in turn: 4-bit, 8-bit, 16-bit),
+    then `units` output CTAs of PASS words of the flat [nb * n] output
+    each; `grid` = both, 0 where there is no word to write."""
+    total = nb * n if nb > 0 and n > 0 else 0
+    rows = n4 + n8 + n16
+    nstamp = -(-rows // THREADS) if total else 0
+    units = -(-total // PASS)
+    return {"nstamp": nstamp, "units": units, "grid": nstamp + units,
+            "total": total, "rows": rows}
+
+
+class _Scratch(unpack_cuda._Scratch):
+    """The kernel's scratch, one buffer per (device, stream), zeroed once
+    when made (unpack_cuda's, with buffers of its own): word 0 the ticket
+    counter, word DONE the count of stamp CTAs done, and from word OWNERS
+    on an owner word a block. Each call takes the next epoch, the tickets and the stamp CTAs
+    counted so far, so stale owner words of earlier calls read as
+    unnamed."""
+
+    _by_key: dict = {}
+
+    def __init__(self, dev: torch.device, words: int):
+        super().__init__(dev, words)
+        self.done = 0
+
+    @classmethod
+    def take(cls, dev: torch.device, stream: int, words: int):
+        s = super().take(dev, stream, words)
+        if s.epoch == 1:  # a new buffer, or one zeroed at the wrap
+            s.done = 0
+        return s
 
 
 def unpack_blocks(
@@ -82,8 +120,9 @@ def unpack_blocks(
     *, nb: int, rows: int, cols: int,
 ) -> torch.Tensor:
     """int16 [nb, rows, cols] from the packed classes on one card,
-    bit-identical to ops.packing.unpack_blocks_plain where every idx is in
-    [0, nb] (an idx outside [0, nb) writes nothing here)."""
+    bit-identical to ops.packing.unpack_blocks_plain for every int32 idx
+    (the JAX package's index rules; rows of one class naming one block
+    are outside the contract)."""
     dev = p16.device
     if dev.type != "cuda":
         raise ValueError(f"no unpack_blocks kernel for device {dev}")
@@ -108,20 +147,26 @@ def unpack_blocks(
             raise ValueError(f"{name} must be {want[name][0]} of shape "
                              f"{want[name][1]}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    out = torch.zeros((nb, rows, cols), dtype=torch.int16, device=dev)
+    out = torch.empty((nb, rows, cols), dtype=torch.int16, device=dev)
     n4, n8, n16 = idx4.shape[0], idx8.shape[0], idx16.shape[0]
-    splits, grid = plan(n4, n8, n16, n, nb)
-    if not grid:
+    p = plan(n4, n8, n16, n, nb)
+    if not p["grid"]:
         return out
-    if grid > _MAX_GRID_X:
-        raise ValueError(f"{grid} CTAs: too many for one launch")
+    if p["grid"] > _MAX_GRID_X or p["rows"] >= 1 << 31:
+        raise ValueError(f"{p['grid']} CTAs, {p['rows']} packed rows: too "
+                         "many for one launch")
     lib = _load()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _Scratch._lock:
         stream = torch.cuda.current_stream(dev).cuda_stream
+        s = _Scratch.take(dev, stream, OWNERS + nb)
         rc = lib.acm_unpack_blocks(
             p4.data_ptr(), p8.data_ptr(), p16.data_ptr(), idx4.data_ptr(),
-            idx8.data_ptr(), idx16.data_ptr(), out.data_ptr(), n4, n8, nb,
-            n, CHUNK, splits, grid, stream)
+            idx8.data_ptr(), idx16.data_ptr(), out.data_ptr(),
+            s.words.data_ptr(), n4, n8, n16, nb, n, p["nstamp"],
+            p["grid"], s.epoch, s.tickets % (1 << 32), s.done % (1 << 32),
+            stream)
+        s.tickets += p["grid"]
+        s.done += p["nstamp"]
     if rc:
         raise RuntimeError(f"unpack_blocks_kernel launch failed: "
                            f"cudaError {rc}")

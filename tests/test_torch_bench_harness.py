@@ -327,6 +327,28 @@ def test_block_unpack_bound_reads_no_padding_payload(bench, nb, rows, cols):
     assert ms_pad < (padded.wire_bytes + 2 * nb * n) / hbm * 1e3
 
 
+def test_block_unpack_bound_reads_each_owner_row_once(bench):
+    """The bound counts one payload a named block, after the JAX index
+    rules: a negative idx wraps, one past the wrap's range names nothing,
+    and of rows naming one block only the latest class's is read."""
+    import numpy as np
+
+    from libacm_tpu_torch.ops import packing
+
+    n, nb = 8, 6
+    pk = packing.PackedBlocks(
+        nb=nb, rows=2, cols=4, p4=np.zeros((3, 4), np.int8),
+        p8=np.zeros((2, n), np.int8), p16=np.zeros((2, n), np.int16),
+        idx4=np.array([0, 1, -7], np.int32),  # -7 wraps to block 0
+        idx8=np.array([1, -1], np.int32),  # -1: row nb, dropped
+        idx16=np.array([2, 9], np.int32))  # 9: past nb, dropped
+    # block 0: the 4-bit row (twice); block 1: the 8-bit row; block 2: 16
+    want = 4 + n + 2 * n + 4 * 7 + 2 * nb * n
+    ms, by = bench.unpack_blocks_bound(pk)
+    assert by == "bytes"
+    assert ms == pytest.approx(want / bench.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+
+
 def test_profiled_keeps_only_a_window_that_recorded_a_spin_kernel(
         bench, monkeypatch):
     """profiled runs fn again while a window recorded none of its spin

@@ -754,27 +754,95 @@ def test_unpack_blocks_kernel_skips_padding_and_leaves_zeros():
     got = ubc.unpack_blocks(*t, nb=40, rows=4, cols=8).cpu().numpy()
     k[gone] = 0
     np.testing.assert_array_equal(got, k)
-    empty = [x[:0] for x in t]  # no packed row: the fill alone
+    empty = [x[:0] for x in t]  # no packed row: one launch writes zeros
     ubc.reset_launches()
     assert not ubc.unpack_blocks(*empty, nb=40, rows=4, cols=8).any()
+    assert dict(ubc.launches) == {"unpack_blocks": 1}
+    ubc.reset_launches()  # no word to write: no launch
+    assert ubc.unpack_blocks(*t, nb=0, rows=4, cols=8).shape == (0, 4, 8)
     assert sum(ubc.launches.values()) == 0
 
 
-def test_unpack_blocks_one_fill_and_one_launch():
-    """An unpack_blocks call on the card: exactly two device operations
-    under the profiler (the zero fill and the kernel), one launch."""
+def test_unpack_blocks_one_launch_and_one_operation():
+    """An unpack_blocks call on the card: exactly one device operation
+    under the profiler (the kernel: no fill, no memset), one launch."""
     from libacm_tpu_torch.ops import packing
     from libacm_tpu_torch.ops import unpack_blocks_cuda as ubc
 
     dev = _card()
     k, t = _packed_on(dev, 8, 300, 16, 128)
     kw = dict(nb=300, rows=16, cols=128)
-    packing.unpack_blocks(*t, **kw)  # built and loaded
+    packing.unpack_blocks(*t, **kw)  # built and loaded, scratch made
     got = []
     ops = _device_ops(lambda: got.append(packing.unpack_blocks(*t, **kw)))
     assert dict(ubc.launches) == {"unpack_blocks": 1}
-    assert ops == 2
+    assert ops == 1
     np.testing.assert_array_equal(got[0].cpu().numpy(), k)
+
+
+@pytest.mark.parametrize("name", [
+    "a negative index wraps onto a block", "-1 names row nb: dropped",
+    "below -(nb + 1): dropped", "above nb: dropped",
+    "a 4-bit and an 8-bit row name one block",
+    "an 8-bit and a 16-bit row name one block"])
+def test_unpack_blocks_kernel_follows_the_index_rules(name):
+    """Indices pack_blocks never makes, as the CPU tests hold the plain
+    version to the JAX package on them: the kernel equals the plain
+    version; the block the changed row named before is zeros, or, where
+    the new index wraps onto that block, the row's values."""
+    from libacm_tpu_torch.ops import packing
+    from libacm_tpu_torch.ops import unpack_blocks_cuda as ubc
+
+    dev = _card()
+    nb = 60
+    _, t = _packed_on(dev, 77, nb, 16, 128, offsets=(1, 3, 2), pad=False)
+    assert min(x.shape[0] for x in t[3:]) >= 2
+    f, new = {
+        "a negative index wraps onto a block": (4, lambda i: i - nb - 1),
+        "-1 names row nb: dropped": (5, lambda i: -1),
+        "below -(nb + 1): dropped": (3, lambda i: -nb - 2),
+        "above nb: dropped": (5, lambda i: nb + 1),
+        "a 4-bit and an 8-bit row name one block": (3, lambda i: int(t[4][1])),
+        "an 8-bit and a 16-bit row name one block": (4,
+                                                     lambda i: int(t[5][1])),
+    }[name]
+    t[f] = t[f].clone()
+    old = int(t[f][0])
+    t[f][0] = new(old)
+    kw = dict(nb=nb, rows=16, cols=128)
+    ubc.reset_launches()
+    got = packing.unpack_blocks(*t, **kw)
+    want = packing.unpack_blocks_plain(*t, **kw)
+    assert dict(ubc.launches) == {"unpack_blocks": 1}
+    assert torch.equal(got, want)
+    assert bool(want[old].any()) == ("wraps" in name)
+
+
+def test_unpack_blocks_kernel_50_calls_in_a_row():
+    """One scratch, 50 calls queued back to back (epochs, tickets and the
+    stamp count run on across them), alternating a 7/16 chunk and a call
+    with fewer blocks, some of them unnamed (owner words of the earlier
+    epochs must read as unnamed) and the rest named through the wrap:
+    each result equals the plain version."""
+    from libacm_tpu_torch.ops import packing
+    from libacm_tpu_torch.ops import unpack_blocks_cuda as ubc
+
+    dev = _card()
+    _, big = _packed_on(dev, 50, 2000, 16, 128)
+    _, small = _packed_on(dev, 51, 1500, 16, 128)
+    small[3] = torch.full_like(small[3], 1500)  # 4-bit rows: padding
+    small[4] = -small[4] - 2  # 8-bit rows: named by the wrap
+    calls = [(big, 2000), (small, 1500)] * 25
+    ubc.reset_launches()
+    got = [packing.unpack_blocks(*t, nb=nb, rows=16, cols=128)
+           for t, nb in calls]
+    torch.cuda.synchronize()
+    assert dict(ubc.launches) == {"unpack_blocks": 50}
+    wants = [packing.unpack_blocks_plain(*t, nb=nb, rows=16, cols=128)
+             for t, nb in calls[:2]]
+    for i, g in enumerate(got):
+        assert torch.equal(g, wants[i % 2]), i
+    assert (wants[1].reshape(1500, -1) == 0).all(1).any()  # unnamed
 
 
 def test_dense_route_packed_on_the_card(monkeypatch):

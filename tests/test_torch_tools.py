@@ -1,8 +1,8 @@
 """The port's evidence tools on the CPU: tools/torch_phase_probe.py and
 tools/torch_rss_sweep.py refuse to run without a card and rehearse their
 control flow with --device cpu (their times then say nothing of a card);
-tools/torch_unpack_ab.py and tools/torch_unpack_probe.py refuse to run
-without a card."""
+tools/torch_unpack_ab.py, tools/torch_unpack_probe.py and
+tools/torch_unpack_blocks_ab.py refuse to run without a card."""
 
 import importlib.util
 import pathlib
@@ -25,7 +25,8 @@ def _tool(name: str):
 @pytest.mark.parametrize("name,argv", [("torch_phase_probe", []),
                                        ("torch_rss_sweep", ["20"]),
                                        ("torch_unpack_ab", []),
-                                       ("torch_unpack_probe", [])])
+                                       ("torch_unpack_probe", []),
+                                       ("torch_unpack_blocks_ab", [])])
 def test_tools_exit_2_without_a_card(name, argv, monkeypatch, capsys):
     import torch
 
