@@ -73,6 +73,7 @@ from ..format import (
 )
 from ..scan import scan_bytes
 from ..scan.oracle import BitReader, parse_header
+from ..utils import profiling
 
 logger = logging.getLogger("libacm_tpu_torch.corpus")
 
@@ -327,7 +328,9 @@ class CorpusSummary:
     n_partial: int = 0  # decoded with a mid-stream error status
     samples: int = 0
     wall_s: float = 0.0
-    scan_s: float = 0.0  # host CPU in the bitstream front-end
+    #: wall seconds of the calling thread in the host scan (the staging,
+    #: the native scan and the host decodes of every device's group)
+    scan_s: float = 0.0
 
     @property
     def msamples_per_s(self) -> float:
@@ -398,7 +401,8 @@ class DeviceCorpus:
         does not describe the results. It is a check that two decodes
         left the same tensors on the device, not a digest of the results.
         """
-        return _sum_all(self._buckets)
+        with profiling.call("libacm.corpus.checksum"):
+            return _sum_all(self._buckets)
 
     def device_arrays(self) -> list[tuple[list[int], torch.Tensor]]:
         """[(file_indices, int16 pcm [B, nb, block_len])] per chunk (per
@@ -662,35 +666,41 @@ def _scan_cols_wire(chunk: list[_FileEntry], level: int, rows: int, nb: int,
     skips = np.zeros(b, dtype=np.int64)
     maxbs = np.zeros(b, dtype=np.int64)
     pos = 0
-    for j, e in enumerate(chunk):
-        n = e.load_into(mv, pos, e.nbytes)
-        offs[j] = pos
-        lens[j] = n
-        pos += n
-        skips[j] = 8 * (ACM_HEADER_LEN
-                        + (WAVC_HEADER_LEN if e.header.wavc_file else 0))
-        maxbs[j] = min(e.header.n_blocks, nb)
+    with profiling.span("libacm.corpus.scan.stage"):
+        for j, e in enumerate(chunk):
+            n = e.load_into(mv, pos, e.nbytes)
+            offs[j] = pos
+            lens[j] = n
+            pos += n
+            skips[j] = 8 * (ACM_HEADER_LEN
+                            + (WAVC_HEADER_LEN if e.header.wavc_file else 0))
+            maxbs[j] = min(e.header.n_blocks, nb)
 
     ev_cap = nb + 64
-    out, events, ncol, bits = _native.scan_corpus_chunk(
-        blob, offs, lens, skips, maxbs, level, rows,
-        w.cls, w.pwr, w.vals, w.pay4, w.pay8, w.pay16,
-        w.wid4, w.wid8, w.wid16, bufs, ev_cap,
-    )
+    with profiling.span("libacm.corpus.scan.native"):
+        out, events, ncol, bits = _native.scan_corpus_chunk(
+            blob, offs, lens, skips, maxbs, level, rows,
+            w.cls, w.pwr, w.vals, w.pay4, w.pay8, w.pay16,
+            w.wid4, w.wid8, w.wid16, bufs, ev_cap,
+        )
     for j, e in enumerate(chunk):
         if e.open_failed:
             continue  # slot stays zeroed; _finalize reports ERR_OPEN
         ng, err, oor, nev, ovf = (int(x) for x in out[j])
         e.n_good, e.first_err = ng, err
-        if ovf:
-            # heavily corrupt stream: event list overflowed the per-file
-            # cap — rescan solo for the full CLI stop-semantics input
-            e.events = _native.scan_bytes_packed(
-                bytes(mv[offs[j] : offs[j] + lens[j]])).events
-        else:
+        if not (ovf or oor):
             e.events = events[j, :nev].copy()
-        if oor:
-            _host_decode_fallback(e, bytes(mv[offs[j] : offs[j] + lens[j]]))
+            continue
+        with profiling.span("libacm.corpus.scan.host_decode",
+                            rescan=bool(ovf), fallback=bool(oor)):
+            data = bytes(mv[offs[j] : offs[j] + lens[j]])
+            # heavily corrupt stream: the event list overflowed the
+            # per-file cap — rescan solo for the full CLI stop-semantics
+            # input
+            e.events = (_native.scan_bytes_packed(data).events if ovf
+                        else events[j, :nev].copy())
+            if oor:
+                _host_decode_fallback(e, data)
 
     # payload pools are append-only up to the counters; padding slices to
     # stable 4096-byte shapes may expose stale (never-gathered) bytes.
@@ -731,31 +741,43 @@ def _coalesce_wire(arrays, wirebufs=None) -> tuple[np.ndarray, tuple]:
     return blob[:total], lens
 
 
-def _dispatch_cols_wire(groups, level: int, rows: int,
-                        nb: int) -> list[_BucketOut]:
+def _dispatch_cols_wire(groups, level: int, rows: int, nb: int,
+                        root=profiling.OFF, index: int = 0
+                        ) -> list[_BucketOut]:
     """Device half of one chunk: for each (files, wire arrays, wire
     buffers, device) group, copy the coalesced wire blob to its device
     and run the slice + unpack + synthesis there (the kernel wrapper: the
     CUDA kernel on a card, its plain version on the CPU). The kernels of
     one group are queued before the next group's copy starts, so distinct
-    devices work side by side."""
+    devices work side by side. `root` is the calling decode's root span
+    and `index` the chunk's number in it, for the spans of this (the
+    submitter) thread."""
     from ..ops.synth_torch import synth_pcm_cols_blob
 
     outs = []
-    for chunk, arrays, wirebufs, device in groups:
-        blob, lens = _coalesce_wire(arrays, wirebufs)
-        dev = torch.from_numpy(blob).to(device)
-        if device.type == "cuda":
-            # on the stream of the device the blob was copied to
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(device))
-            wirebufs.copied = ev  # pool reuse waits for this copy
-        pcm, _ = synth_pcm_cols_blob(
-            dev, level=level, rows=rows, batch=len(chunk), nb=nb,
-            backend="cuda", lens=lens,
-        )
-        outs.append(_BucketOut(level=level, rows=rows, entries=chunk,
-                               pcm=pcm))
+    with profiling.span("libacm.corpus.dispatch", root, chunk=index) as sp:
+        for chunk, arrays, wirebufs, device in groups:
+            with profiling.span("libacm.corpus.coalesce"):
+                blob, lens = _coalesce_wire(arrays, wirebufs)
+            with profiling.span("libacm.corpus.copy"):
+                host = torch.from_numpy(blob)
+                dev = host.to(device)
+                if device.type == "cuda":
+                    # on the stream of the device the blob was copied to
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(device))
+                    wirebufs.copied = ev  # pool reuse waits for this copy
+            if sp.recording and device.type != "cpu":
+                profiling.count("libacm.copy.h2d_bytes."
+                                + ("pinned" if host.is_pinned()
+                                   else "pageable"), blob.nbytes)
+            with profiling.span("libacm.corpus.launch"):
+                pcm, _ = synth_pcm_cols_blob(
+                    dev, level=level, rows=rows, batch=len(chunk), nb=nb,
+                    backend="cuda", lens=lens,
+                )
+            outs.append(_BucketOut(level=level, rows=rows, entries=chunk,
+                                   pcm=pcm))
     return outs
 
 
@@ -792,11 +814,13 @@ def decode_corpus_device(
     Buckets files by (level, rows, padded block capacity), then per chunk
     of `chunk_files` files: host scan, copy, synthesis — successive chunks
     pipeline host scan against the copy and the device work.
+
+    Under a torch profiler the call records its spans and counters
+    (utils.profiling: `libacm.corpus.*`, `libacm.copy.*`).
     """
     if devices is not None and device is not None:
         raise ValueError("pass device or devices, not both")
     devs = _resolve_devices(device if devices is None else devices)
-    n_shards = len(devs)
     if config is not None:
         if config.backend != "auto":
             raise ValueError(f"decode_corpus_device takes backend 'auto' "
@@ -804,12 +828,19 @@ def decode_corpus_device(
         force_chans = config.force_chans
         chunk_files = config.chunk_files
         pack = config.pack
-    t_start = time.perf_counter()
-    out = DeviceCorpus(len(sources), devs)
+    with profiling.call("libacm.corpus.decode", files=len(sources),
+                        devices=len(devs)) as root:
+        return _decode_corpus_device(sources, devs, force_chans,
+                                     chunk_files, pack, root)
 
-    # 1. cheap header pass → buckets keyed by shape. Only a 64-byte prefix
-    # + the file size are read here; full bytes load per chunk at scan
-    # time, so ingest host memory is O(chunk), not O(corpus)
+
+def _bucket_by_shape(sources: Sequence[Source], force_chans: int,
+                     out: DeviceCorpus
+                     ) -> dict[tuple[int, int, int], list[_FileEntry]]:
+    """The cheap header pass: files bucketed by shape key. Only a 64-byte
+    prefix + the file size are read here; full bytes load per chunk at
+    scan time, so ingest host memory is O(chunk), not O(corpus). Files
+    that cannot be opened or parsed go to `out` as failed."""
     buckets: dict[tuple[int, int, int], list[_FileEntry]] = {}
     for i, src in enumerate(sources):
         try:
@@ -833,6 +864,21 @@ def decode_corpus_device(
         key = (header.level, header.rows,
                _pad_blocks(header.max_blocks_in(nbytes)))
         buckets.setdefault(key, []).append(e)
+    return buckets
+
+
+def _decode_corpus_device(sources: Sequence[Source],
+                          devs: list[torch.device], force_chans: int,
+                          chunk_files: int | None, pack: bool,
+                          root) -> DeviceCorpus:
+    """decode_corpus_device's body, inside the call's root span `root`."""
+    n_shards = len(devs)
+    t_start = time.perf_counter()
+    out = DeviceCorpus(len(sources), devs)
+
+    # 1. cheap header pass → buckets keyed by shape
+    with profiling.span("libacm.corpus.headers"):
+        buckets = _bucket_by_shape(sources, force_chans, out)
 
     use_cols_wire = pack
     if use_cols_wire:
@@ -848,7 +894,9 @@ def decode_corpus_device(
     n_collected = 0
 
     def collect(fut) -> None:
-        for b in fut.result():
+        with profiling.span("libacm.corpus.wait"):
+            done = fut.result()
+        for b in done:
             out._add_bucket(b)
 
     try:
@@ -884,20 +932,31 @@ def decode_corpus_device(
                             g, level, rows, nb, wlen, d, pack=pack))
                     continue
                 t0 = time.perf_counter()
+                scanned_ns = 0
                 groups = []
                 try:
                     for g, d in shards:
-                        arrays, w = _scan_cols_wire(g, level, rows, nb, d)
-                        # hold the buffers NOW: two groups share a pool
-                        # key when the list names a device twice, and
-                        # until the dispatch future exists free() would
-                        # hand this group's buffers to the next one
-                        # (reset + payload overwrite -> wrong PCM here)
-                        w.fut = _SCAN_HOLD
-                        groups.append((g, arrays, w, d))
-                    out.summary.scan_s += time.perf_counter() - t0
+                        with profiling.span("libacm.corpus.scan",
+                                            device=d.index,
+                                            files=len(g)) as sp:
+                            arrays, w = _scan_cols_wire(g, level, rows, nb,
+                                                        d)
+                            # hold the buffers NOW: two groups share a
+                            # pool key when the list names a device
+                            # twice, and until the dispatch future exists
+                            # free() would hand this group's buffers to
+                            # the next one (reset + payload overwrite ->
+                            # wrong PCM here)
+                            w.fut = _SCAN_HOLD
+                            groups.append((g, arrays, w, d))
+                        scanned_ns += sp.ns
+                    # while recording, the scan spans are the clock
+                    out.summary.scan_s += (
+                        scanned_ns / 1e9 if root.recording
+                        else time.perf_counter() - t0)
                     fut = submitter.submit(_dispatch_cols_wire, groups,
-                                           level, rows, nb)
+                                           level, rows, nb, root,
+                                           len(pending))
                 except BaseException:
                     # a failed scan or submit must not leave the holds
                     # pinned: the pool keeps busy buffers unconditionally

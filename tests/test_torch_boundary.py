@@ -79,9 +79,9 @@ _PROBE = textwrap.dedent("""
                 "examples/torch_training_ingest.py",
                 "examples/torch_segment_server.py",
                 "tools/torch_parity_sweep.py", "tools/torch_synth_ab.py",
-                "tools/torch_synth_probe.py", "tools/torch_phase_probe.py",
-                "tools/torch_rss_sweep.py", "tools/torch_multicard_check.py",
-                "tools/torch_unpack_ab.py", "tools/torch_unpack_probe.py",
+                "tools/torch_synth_probe.py", "tools/torch_rss_sweep.py",
+                "tools/torch_multicard_check.py", "tools/torch_unpack_ab.py",
+                "tools/torch_unpack_probe.py",
                 "chip_smoke.py", "bench_torch.py",
                 "__graft_entry_torch__.py"):
         spec = importlib.util.spec_from_file_location(

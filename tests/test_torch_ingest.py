@@ -151,17 +151,33 @@ def test_ingest_default_needs_card(monkeypatch):
 
 
 def test_profiling_trace_and_annotate(tmp_path, monkeypatch):
-    from libacm_tpu_torch.utils.profiling import (annotate,
-                                                  maybe_trace_from_env, trace)
+    """The program's spans (profiling.call / span, which replaced
+    annotate): nothing without a profiler, the trace's events and the
+    in-memory record under trace(dir) and LIBACM_TPU_TORCH_PROFILE."""
+    from libacm_tpu_torch.utils import profiling
 
+    profiling.reset()
     monkeypatch.delenv("LIBACM_TPU_TORCH_PROFILE", raising=False)
-    with maybe_trace_from_env():  # unset: no trace, no file
-        with annotate("scan"):
+    with profiling.maybe_trace_from_env():  # unset: no trace, no file
+        with profiling.call("libacm.scan") as sp:
+            assert sp is profiling.OFF
+    assert profiling.records() == []
+    with profiling.trace(tmp_path / "t"):
+        with profiling.call("libacm.scan"):
+            with profiling.span("libacm.scan.stage", files=8):
+                torch.ones(8).sum()
+    monkeypatch.setenv("LIBACM_TPU_TORCH_PROFILE", str(tmp_path / "env"))
+    with profiling.maybe_trace_from_env():
+        with profiling.call("libacm.env"):
             pass
-    with trace(tmp_path / "t"):
-        with annotate("libacm_scan_stage"):
-            torch.ones(8).sum()
-    (path,) = (tmp_path / "t").glob("*.json")
-    names = {e.get("name") for e in json.loads(path.read_text())[
-        "traceEvents"]}
-    assert "libacm_scan_stage" in names
+    for d, want in (("t", {"libacm.scan", "libacm.scan.stage"}),
+                    ("env", {"libacm.env"})):
+        (path,) = (tmp_path / d).glob("*.json")
+        names = {e.get("name") for e in json.loads(path.read_text())[
+            "traceEvents"]}
+        assert want <= names
+    recs = profiling.records()
+    assert [r.name for r in recs] == ["libacm.scan.stage", "libacm.scan",
+                                      "libacm.env"]
+    assert recs[0].parent == recs[1].id and recs[0].attrs == {"files": 8}
+    profiling.reset()

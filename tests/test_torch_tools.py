@@ -1,8 +1,8 @@
-"""The port's evidence tools on the CPU: tools/torch_phase_probe.py and
-tools/torch_rss_sweep.py refuse to run without a card and rehearse their
-control flow with --device cpu (their times then say nothing of a card);
-tools/torch_unpack_ab.py, tools/torch_unpack_probe.py and
-tools/torch_unpack_blocks_ab.py refuse to run without a card."""
+"""The port's evidence tools on the CPU: tools/torch_rss_sweep.py refuses
+to run without a card and rehearses its control flow with --device cpu
+(its times then say nothing of a card); tools/torch_unpack_ab.py,
+tools/torch_unpack_probe.py and tools/torch_unpack_blocks_ab.py refuse to
+run without a card."""
 
 import importlib.util
 import pathlib
@@ -22,8 +22,7 @@ def _tool(name: str):
     return mod
 
 
-@pytest.mark.parametrize("name,argv", [("torch_phase_probe", []),
-                                       ("torch_rss_sweep", ["20"]),
+@pytest.mark.parametrize("name,argv", [("torch_rss_sweep", ["20"]),
                                        ("torch_unpack_ab", []),
                                        ("torch_unpack_probe", []),
                                        ("torch_unpack_blocks_ab", [])])
@@ -34,26 +33,6 @@ def test_tools_exit_2_without_a_card(name, argv, monkeypatch, capsys):
     assert _tool(name).main(argv) == 2
     captured = capsys.readouterr()
     assert captured.out == "" and "no CUDA device" in captured.err
-
-
-def test_phase_probe_rehearsal_names_every_phase(capsys):
-    from libacm_tpu_torch.parallel import corpus
-
-    before = (corpus._scan_cols_wire, corpus._dispatch_cols_wire)
-    assert _tool("torch_phase_probe").main(
-        ["--device", "cpu", "--scale", "0.02"]) == 0
-    # the wrapped pipeline halves are put back
-    assert (corpus._scan_cols_wire, corpus._dispatch_cols_wire) == before
-    out = capsys.readouterr().out
-    assert out.startswith("cpu rehearsal")
-    rounds = [ln for ln in out.splitlines() if ln.startswith("round ")]
-    assert len(rounds) == 2 and all("checksum" in ln and " ok" in ln
-                                    for ln in rounds)
-    chunk_lines = [ln for ln in out.splitlines() if " chunk " in ln]
-    assert len(chunk_lines) == 8  # four geometries, twice
-    for key in ("scan=", "coalesce=", "copy=", "unpack_enqueue=",
-                "kernel_launch=", "drain="):
-        assert all(key in ln for ln in chunk_lines), key
 
 
 def test_rss_sweep_rehearsal_holds_its_budget(capsys):
