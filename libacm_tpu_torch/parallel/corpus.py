@@ -7,11 +7,15 @@ list of them (`devices=[...]`; torch has no mesh, the list is the mesh):
           block count) — the shape key — and for each chunk of a bucket run
           the C++ scanner over all its files at once, writing the
           exact-width cols-wire (class map, bit-packed column streams,
-          width nibbles, vals);
+          width nibbles, vals). The scans run on a small pool of
+          long-lived scanner threads (`_scan_workers()`: the CPUs the
+          process may use less two, at most 6), one task per device group
+          of a chunk, several chunks ahead of the calling thread, which
+          takes them back in chunk order;
   link:   the chunk's wire sections are coalesced into one byte blob and
           copied to the device (`torch.from_numpy(blob).to(device)`) on a
-          single submitter thread, so the scan of chunk N+1 overlaps chunk
-          N's copy and dispatch;
+          single submitter thread, in chunk order, so the scans of the
+          next chunks overlap chunk N's copy and dispatch;
   device: slice the blob, unpack the columns (tensor ops) and synthesize
           (the CUDA kernel of ops.synth_cuda on a card; its plain version
           on the CPU);
@@ -47,12 +51,13 @@ words the CLI would append to reach the declared length.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Sequence, Union
 
 import numpy as np
@@ -328,8 +333,10 @@ class CorpusSummary:
     n_partial: int = 0  # decoded with a mid-stream error status
     samples: int = 0
     wall_s: float = 0.0
-    #: wall seconds of the calling thread in the host scan (the staging,
-    #: the native scan and the host decodes of every device's group)
+    #: wall seconds of the calling thread in the host scan: the time it
+    #: spends blocked on the scanner threads' scans (the staging, the
+    #: native scan and the host decodes of every device's group), Σ
+    #: `libacm.corpus.scan.wait` while recording
     scan_s: float = 0.0
 
     @property
@@ -788,6 +795,75 @@ def _shard(chunk: list, n: int) -> list[list]:
     return [chunk[s * per : (s + 1) * per] for s in range(n)]
 
 
+#: most scanner threads: past about this many the submitter thread, not
+#: the scan, sets the pace of a pass (an H100's host, 8 and 32 cores)
+_SCAN_WORKERS_MAX = 6
+
+
+def _scan_workers() -> int:
+    """Scanner threads of the corpus path: the CPUs this process may use,
+    less one for the calling thread and one for the submitter, at least 1
+    and at most _SCAN_WORKERS_MAX."""
+    try:
+        n = len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        n = os.cpu_count() or 1
+    return max(1, min(_SCAN_WORKERS_MAX, n - 2))
+
+
+_SCANNER_LOCK = threading.Lock()
+#: (pid, workers, executor) of the process's scanner pool
+_SCANNER: tuple[int, int, ThreadPoolExecutor] | None = None
+
+
+def _scanner() -> tuple[int, ThreadPoolExecutor]:
+    """The process's scanner pool, made on first use and kept: each of
+    its threads keeps its own scan scratch, staging blob and wire-buffer
+    pool (`_SCAN_TLS`) from call to call. Made again only in a forked
+    child (the parent's threads are not there) or where _scan_workers()
+    answers otherwise."""
+    global _SCANNER
+    n = _scan_workers()
+    with _SCANNER_LOCK:
+        if _SCANNER is None or _SCANNER[:2] != (os.getpid(), n):
+            _SCANNER = (os.getpid(), n, ThreadPoolExecutor(
+                max_workers=n, thread_name_prefix="libacm-scan"))
+        return n, _SCANNER[2]
+
+
+class _ScanCall:
+    """The scans of one decode call that are running now."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.running = 0
+
+
+def _scan_group(group: list[_FileEntry], level: int, rows: int, nb: int,
+                device: torch.device, root, call: _ScanCall):
+    """One scanner task: the host scan of one device group of a chunk,
+    in the span `libacm.corpus.scan` under the call's root. Returns
+    (arrays, _WireBufs, whether another scan of the call was running when
+    it started), the buffers held."""
+    with call.lock:
+        overlapped = call.running > 0
+        call.running += 1
+    try:
+        with profiling.span("libacm.corpus.scan", root, device=device.index,
+                            files=len(group)):
+            arrays, w = _scan_cols_wire(group, level, rows, nb, device)
+            # hold the buffers before this thread takes another task: two
+            # groups share a pool key when the list names a device twice,
+            # and until the dispatch future exists free() would hand this
+            # group's buffers to the next one (reset + payload overwrite
+            # -> wrong PCM here)
+            w.fut = _SCAN_HOLD
+    finally:
+        with call.lock:
+            call.running -= 1
+    return arrays, w, overlapped
+
+
 def decode_corpus_device(
     sources: Sequence[Source],
     *,
@@ -886,90 +962,32 @@ def _decode_corpus_device(sources: Sequence[Source],
 
         use_cols_wire = _native.available()
 
-    # 2. per bucket, chunked scan → copy → dispatch. The device submission
-    # runs on a single worker thread, which serves every device of the
-    # list, so the GIL-free C++ scan of chunk N+1 overlaps chunk N's copy.
-    submitter = ThreadPoolExecutor(max_workers=1)
-    pending: list = []
-    n_collected = 0
+    # 2. the chunks of every bucket, in order
+    chunks = []
+    for (level, rows, nb), entries in buckets.items():
+        cols = 1 << level
+        per_file = max(1, nb * rows * cols)
+        if chunk_files is not None:
+            step = max(1, chunk_files) * n_shards
+        else:
+            # auto: ~16M samples per dispatch (per device), 8..256 files
+            step = min(256, max(8, -(-16_000_000 // per_file))) * n_shards
+        if use_cols_wire:
+            # the JAX reference caps a chunk's per-shard payload stream
+            # below 2^31 bits (128M samples * 16 bits); same chunks here
+            step = min(step, max(n_shards, ((1 << 27) // per_file) * n_shards))
+        for lo in range(0, len(entries), step):
+            shards = [(g, d) for g, d in zip(
+                _shard(entries[lo : lo + step], n_shards), devs) if g]
+            chunks.append((level, rows, nb, shards))
 
-    def collect(fut) -> None:
-        with profiling.span("libacm.corpus.wait"):
-            done = fut.result()
-        for b in done:
-            out._add_bucket(b)
-
-    try:
-        for (level, rows, nb), entries in buckets.items():
-            cols = 1 << level
-            wlen = 2 * cols - 2
-            per_file = max(1, nb * rows * cols)
-            if chunk_files is not None:
-                step = max(1, chunk_files) * n_shards
-            else:
-                # auto: ~16M samples per dispatch (per device), 8..256
-                # files
-                step = min(256, max(8, -(-16_000_000 // per_file))) * n_shards
-            if use_cols_wire:
-                # the JAX reference caps a chunk's per-shard payload
-                # stream below 2^31 bits (128M samples * 16 bits); same
-                # chunks here
-                step = min(step,
-                           max(n_shards, ((1 << 27) // per_file) * n_shards))
-            for lo in range(0, len(entries), step):
-                chunk = entries[lo : lo + step]
-                # bound in-flight dispatches: caps host memory at
-                # O(few chunks) of wire arrays and lets pooled buffers
-                # recycle
-                while len(pending) - n_collected >= 6:
-                    collect(pending[n_collected])
-                    n_collected += 1
-                shards = [(g, d) for g, d in zip(_shard(chunk, n_shards),
-                                                 devs) if g]
-                if not use_cols_wire:
-                    for g, d in shards:
-                        out._add_bucket(_dispatch_dense(
-                            g, level, rows, nb, wlen, d, pack=pack))
-                    continue
-                t0 = time.perf_counter()
-                scanned_ns = 0
-                groups = []
-                try:
-                    for g, d in shards:
-                        with profiling.span("libacm.corpus.scan",
-                                            device=d.index,
-                                            files=len(g)) as sp:
-                            arrays, w = _scan_cols_wire(g, level, rows, nb,
-                                                        d)
-                            # hold the buffers NOW: two groups share a
-                            # pool key when the list names a device
-                            # twice, and until the dispatch future exists
-                            # free() would hand this group's buffers to
-                            # the next one (reset + payload overwrite ->
-                            # wrong PCM here)
-                            w.fut = _SCAN_HOLD
-                            groups.append((g, arrays, w, d))
-                        scanned_ns += sp.ns
-                    # while recording, the scan spans are the clock
-                    out.summary.scan_s += (
-                        scanned_ns / 1e9 if root.recording
-                        else time.perf_counter() - t0)
-                    fut = submitter.submit(_dispatch_cols_wire, groups,
-                                           level, rows, nb, root,
-                                           len(pending))
-                except BaseException:
-                    # a failed scan or submit must not leave the holds
-                    # pinned: the pool keeps busy buffers unconditionally
-                    for _, _, w, _ in groups:
-                        w.fut = None
-                    raise
-                for _, _, w, _ in groups:
-                    w.fut = fut
-                pending.append(fut)
-        for fut in pending[n_collected:]:
-            collect(fut)
-    finally:
-        submitter.shutdown(wait=False)
+    if not use_cols_wire:
+        for level, rows, nb, shards in chunks:
+            for g, d in shards:
+                out._add_bucket(_dispatch_dense(
+                    g, level, rows, nb, 2 * (1 << level) - 2, d, pack=pack))
+    else:
+        _pipeline_cols_wire(chunks, out, root)
 
     s = out.summary
     for b in out._buckets:
@@ -987,6 +1005,86 @@ def _decode_corpus_device(sources: Sequence[Source],
     s.wall_s = time.perf_counter() - t_start
     logger.debug("corpus decode: %s", s.as_dict())
     return out
+
+
+def _pipeline_cols_wire(chunks: list, out: DeviceCorpus, root) -> None:
+    """Scan → copy → dispatch of the chunks, in their order, into `out`.
+
+    The scanner pool scans every device group of a chunk as its own task,
+    up to `workers + 6` chunks ahead of the calling thread, which waits
+    for each chunk's scans in order (`libacm.corpus.scan.wait`, the
+    summary's scan_s) and hands the chunk to the one submitter thread: at
+    most six dispatches in flight, and the buckets reach `out` in chunk
+    order."""
+    workers, scanner = _scanner()
+    profiling.count("libacm.corpus.scan.workers", workers)
+    call = _ScanCall()
+    submitter = ThreadPoolExecutor(max_workers=1)
+    ahead: collections.deque = collections.deque()  # (chunk, scan futures)
+    todo = iter(chunks)
+    current = ()  # scan futures of the chunk taken but not dispatched
+    pending: list = []
+    n_collected = 0
+    n_overlapped = 0
+
+    def scan_next() -> None:
+        c = next(todo, None)
+        if c is not None:
+            level, rows, nb, shards = c
+            ahead.append((c, [scanner.submit(_scan_group, g, level, rows,
+                                             nb, d, root, call)
+                              for g, d in shards]))
+
+    def collect(fut) -> None:
+        with profiling.span("libacm.corpus.wait"):
+            done = fut.result()
+        for b in done:
+            out._add_bucket(b)
+
+    try:
+        for _ in range(workers + 6):
+            scan_next()
+        while ahead:
+            (level, rows, nb, shards), current = ahead.popleft()
+            t0 = time.perf_counter()
+            with profiling.span("libacm.corpus.scan.wait",
+                                chunk=len(pending)) as sp:
+                scanned = [f.result() for f in current]
+            # while recording, the wait spans are the clock
+            out.summary.scan_s += (sp.ns / 1e9 if root.recording
+                                   else time.perf_counter() - t0)
+            n_overlapped += sum(o for _, _, o in scanned)
+            # bound in-flight dispatches: caps host memory at O(few
+            # chunks) of wire arrays and lets pooled buffers recycle
+            while len(pending) - n_collected >= 6:
+                collect(pending[n_collected])
+                n_collected += 1
+            groups = [(g, arrays, w, d)
+                      for (g, d), (arrays, w, _) in zip(shards, scanned)]
+            fut = submitter.submit(_dispatch_cols_wire, groups, level, rows,
+                                   nb, root, len(pending))
+            for _, _, w, _ in groups:
+                w.fut = fut
+            current = ()
+            pending.append(fut)
+            scan_next()
+        for fut in pending[n_collected:]:
+            collect(fut)
+    except BaseException:
+        # a failed scan, wait or submit must not leave holds pinned (the
+        # pool keeps busy buffers unconditionally): drop the queued
+        # scans, let the running ones end, release what they hold
+        left = list(current) + [f for _, fs in ahead for f in fs]
+        for f in left:
+            f.cancel()
+        wait(left)
+        for f in left:
+            if not f.cancelled() and f.exception() is None:
+                f.result()[1].fut = None
+        raise
+    finally:
+        submitter.shutdown(wait=False)
+        profiling.count("libacm.corpus.scan.overlapped", n_overlapped)
 
 
 def _dispatch_dense(chunk, level, rows, nb, wlen, device: torch.device,

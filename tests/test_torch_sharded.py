@@ -8,6 +8,7 @@ runs over the virtual CPU devices tests/conftest.py sets up. Tolerance 0:
 PCM, status and filler words are compared bit for bit.
 """
 
+import threading
 from concurrent.futures import Future
 
 import numpy as np
@@ -149,14 +150,16 @@ def test_torch_sharded_holds_every_group_until_dispatch(monkeypatch):
     the dispatch future, and release them when a scan fails."""
     files = _hostile(6)
     want = tcorpus.decode_corpus(files, device="cpu")
-    pool: list = []
-    monkeypatch.setattr(tcorpus._SCAN_TLS, "wire_pool", pool, raising=False)
+    monkeypatch.setattr(tcorpus, "_scan_workers", lambda: 4)
+    pools: dict[int, list] = {}
     cpu = torch.device("cpu")
     seen = []
 
     def pooled_acquire(b, nb, level, rows, device):
-        # pool as a card target would (the CPU target never pools); every
-        # buffer acquired while an earlier group waits must be another one
+        # pool as a card target would, one pool a scanner thread (the CPU
+        # target never pools); every buffer acquired while an earlier
+        # group waits must be another one
+        pool = pools.setdefault(threading.get_ident(), [])
         for w in pool:
             if w.key == (b, nb, level, rows, device) and w.free():
                 w.reset()

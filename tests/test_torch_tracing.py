@@ -4,9 +4,11 @@ the corpus path, and the benchmark's readers of them.
 On the CPU with device="cpu": nothing is recorded without a profiler and
 a traced decode equals an untraced one; under profiling.trace(dir) every
 span of the corpus path lands in the exported trace, the submitter
-thread's too, on the clock of the in-memory record, nested in its parent;
-the scan spans are CorpusSummary.scan_s; one host_decode span a
-stale-amp-table file; self times are never negative; and each of the
+thread's and the scanner threads' too, on the clock of the in-memory
+record, nested in its parent; the scan wait spans are
+CorpusSummary.scan_s, the scan spans one a device group, the scanner
+counters recorded; one host_decode span a stale-amp-table file; self
+times are never negative; and each of the
 benchmark's span metrics reads None from nothing and the right number
 from a made-up record. The case marked `cuda` runs the same on a card and
 holds the copy counters to the bytes handed to it.
@@ -33,10 +35,11 @@ STALE = ROOT / "tests" / "fixtures" / "stale_table_fuzz_2103.acm"
 SPANS = {
     "libacm.corpus.decode": (None, "caller"),
     "libacm.corpus.headers": ("libacm.corpus.decode", "caller"),
-    "libacm.corpus.scan": ("libacm.corpus.decode", "caller"),
-    "libacm.corpus.scan.stage": ("libacm.corpus.scan", "caller"),
-    "libacm.corpus.scan.native": ("libacm.corpus.scan", "caller"),
-    "libacm.corpus.scan.host_decode": ("libacm.corpus.scan", "caller"),
+    "libacm.corpus.scan": ("libacm.corpus.decode", "scanner"),
+    "libacm.corpus.scan.stage": ("libacm.corpus.scan", "scanner"),
+    "libacm.corpus.scan.native": ("libacm.corpus.scan", "scanner"),
+    "libacm.corpus.scan.host_decode": ("libacm.corpus.scan", "scanner"),
+    "libacm.corpus.scan.wait": ("libacm.corpus.decode", "caller"),
     "libacm.corpus.wait": ("libacm.corpus.decode", "caller"),
     "libacm.corpus.dispatch": ("libacm.corpus.decode", "submitter"),
     "libacm.corpus.coalesce": ("libacm.corpus.dispatch", "submitter"),
@@ -136,11 +139,16 @@ def test_every_span_lands_in_the_exported_trace(tmp_path):
         tids.setdefault(ev["name"], set()).add(ev["tid"])
     assert set(tids) == set(SPANS)
     caller = tids["libacm.corpus.decode"]
+    submitter = tids["libacm.corpus.dispatch"]
+    scanners = tids["libacm.corpus.scan"]
+    assert not caller & submitter and not scanners & (caller | submitter)
     for name, (_, thread) in SPANS.items():
         if thread == "caller":
             assert tids[name] == caller, name
+        elif thread == "submitter":
+            assert tids[name] == submitter, name
         else:
-            assert tids[name] and not tids[name] & caller, name
+            assert tids[name] and tids[name] <= scanners, name
     # the in-memory record names the same threads
     by_name = {}
     for r in recs:
@@ -218,24 +226,52 @@ def test_trace_and_record_share_one_clock(tmp_path):
                 assert ts - rs < 1000.0, (key, ts, rs)
 
 
+def _two_scans_at_once(monkeypatch):
+    """Hold the first two scans of a call until both run, so the scanner
+    threads scan at once (each file here scans in microseconds)."""
+    meet = threading.Barrier(2, timeout=60)
+    real = tcorpus._scan_cols_wire
+    n = []
+
+    def scan(*args):
+        n.append(1)
+        if len(n) <= 2:
+            meet.wait()
+        return real(*args)
+
+    monkeypatch.setattr(tcorpus, "_scan_cols_wire", scan)
+
+
 @pytest.mark.parametrize("kw", KWARGS[:3], ids=["auto", "chunk1", "three"])
-def test_scan_spans_are_the_summarys_scan_s(tmp_path, kw):
+def test_scan_spans_are_the_summarys_scan_s(tmp_path, kw, monkeypatch):
+    monkeypatch.setattr(tcorpus, "_scan_workers", lambda: 4)
+    _two_scans_at_once(monkeypatch)
     dc, _, _, recs = _traced(tmp_path, _files(), **kw)
+    waits = [r for r in recs if r.name == "libacm.corpus.scan.wait"]
+    assert waits and dc.summary.scan_s > 0
+    # the caller's time blocked on the scans is scan_s
+    assert sum(r.seconds for r in waits) == pytest.approx(
+        dc.summary.scan_s, rel=1e-12)
+    t = profiling.totals()
+    spans = t["spans"]
+    assert spans["libacm.corpus.scan.wait"]["total_s"] == pytest.approx(
+        dc.summary.scan_s, rel=1e-12)
+    # one wait a chunk, one dispatch a chunk
+    assert len(waits) == spans["libacm.corpus.dispatch"]["count"]
+    # stage + native + host decodes + the scan's own time = the scans,
+    # summed over the scanner threads
     scans = [r for r in recs if r.name == "libacm.corpus.scan"]
-    assert scans and dc.summary.scan_s > 0
-    assert sum(r.seconds for r in scans) == pytest.approx(
-        dc.summary.scan_s, rel=1e-12)
-    t = profiling.totals()["spans"]
-    assert t["libacm.corpus.scan"]["total_s"] == pytest.approx(
-        dc.summary.scan_s, rel=1e-12)
-    # stage + native + host decodes + the scan's own time = the scan
-    parts = sum(t[n]["total_s"] for n in t
-                if n.startswith("libacm.corpus.scan."))
-    assert parts + t["libacm.corpus.scan"]["self_s"] == pytest.approx(
-        dc.summary.scan_s, rel=1e-9)
+    parts = sum(spans[n]["total_s"] for n in spans
+                if n.startswith("libacm.corpus.scan.")
+                and n != "libacm.corpus.scan.wait")
+    assert parts + spans["libacm.corpus.scan"]["self_s"] == pytest.approx(
+        sum(r.seconds for r in scans), rel=1e-9)
     # one scan span a device group of a chunk
     groups = sum(1 for ix, _ in dc.device_arrays() if ix)
-    assert len(scans) == groups
+    assert len(scans) == groups >= 2
+    # the scanner counters: the pool's size, and scans that ran at once
+    assert t["counters"]["libacm.corpus.scan.workers"] == 4
+    assert t["counters"]["libacm.corpus.scan.overlapped"] > 0
 
 
 @pytest.mark.parametrize("n_stale", [1, 2, 3])
@@ -438,7 +474,8 @@ def test_card_copy_counters_and_one_timeline(tmp_path, monkeypatch):
                                   chunk_files=2)
     assert cs == plain.checksum()
     _same_decode(plain, dc)
-    counters = profiling.totals()["counters"]
+    counters = {k: v for k, v in profiling.totals()["counters"].items()
+                if k.startswith("libacm.copy.")}
     assert handed and sum(counters.values()) == sum(handed)
     assert counters == {"libacm.copy.h2d_bytes.pageable": sum(handed)}
     # both threads' spans, the kernels and the copies on one timeline:
@@ -447,7 +484,7 @@ def test_card_copy_counters_and_one_timeline(tmp_path, monkeypatch):
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     spans = _span_events(trace)
     assert {e["name"] for e in spans} == set(SPANS)
-    assert len({e["tid"] for e in spans}) == 2
+    assert len({e["tid"] for e in spans}) >= 3  # caller, submitter, scanners
     (root,) = [e for e in spans if e["name"] == "libacm.corpus.decode"]
     (last,) = [e for e in spans if e["name"] == "libacm.corpus.checksum"]
     lo, hi = root["ts"] - 1000.0, last["ts"] + last["dur"] + 1000.0
