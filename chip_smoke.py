@@ -39,7 +39,7 @@ Phases (any failure exits non-zero, and no result line is printed):
             of each corpus geometry, a stream window and random-access
             segments of 8 and 32 blocks, beside its plain version (the
             eager torch ops) and bench_torch.unpack_bound.
-5. reference API on the card, three paths, each with the launch
+5. reference API on the card, four paths, each with the launch
             counters reset just before it and read just after:
             stream — every tests/fixtures file and one full-size file of
             each bench-mix class (and a bit-flipped one) through
@@ -51,12 +51,19 @@ Phases (any failure exits non-zero, and no result line is printed):
             the 190-file corpus through RandomAccessCorpus(device="cuda"),
             equal to backend="host", one unpack launch a segment,
             exactly 4 device operations a segment under the profiler;
+            read_batch — 8 batches of 16 crops of 8,192 frames over 24
+            7/16 clips (one cut short, one shorter than a crop, crops
+            past a clip's end zero-padded) through
+            RandomAccessCorpus(device="cuda").read_batch, each batch equal
+            to the plain route (device="cpu") and to backend="host" padded,
+            one unpack and one fused launch a batch, and the unpack on its
+            [16, 8] wire timed beside its plain version and its bound;
             CLI — `acmtool -d -r -o` in process on three fixtures, equal
             to the goldens. The stream and the CLI synthesize dense k: no
             unpack launch.
             Then the kernel's time at the shapes these paths give it
-            (B = 1), and at blocks that fit one CTA per SM or none, beside
-            its plain version and its bound.
+            (B = 1, and read_batch's [16, 8]), and at blocks that fit one
+            CTA per SM or none, beside its plain version and its bound.
 6. device lists, windows and processes, each part with the launch
             counters reset just before it and read just after:
             stream windows — one seeded 7/16 mono stream of STREAM_BLOCKS
@@ -181,6 +188,14 @@ NEW_SHAPES = [("stream, whole file", 7, 16, 300),
               ("one CTA per SM", 13, 2, 4),
               ("blocks over 227 KB", 14, 1, 4),
               ("blocks over 227 KB", 15, 16, 3)]
+#: phase 5's batched shapes: (what, level, rows, B, nb); read_batch's 16
+#: crops of 8,192 frames, each its blocks plus one warm-up, padded to 8
+BATCH_SHAPES = [("read_batch, 16 crops", 7, 16, 16, 8)]
+#: phase 5's read_batch: batches, crops a batch, frames a crop, 7/16 clips
+READ_BATCHES = 8
+READ_BATCH_B = 16
+READ_CROP_FRAMES = 8192
+READ_CLIPS = 24
 #: phase 6's rows == 1 and level-0 streams: (what, level, rows, blocks,
 #: window)
 PASS_STREAMS = [("rows == 1", 7, 1, 4800, 512), ("level 0", 0, 2048, 400, 64)]
@@ -607,6 +622,93 @@ def phase5_random_access(torch, synth_cuda, corpus_files, card) -> dict:
     return launches | unpacked
 
 
+def phase5_read_batch(torch, synth_cuda, testing, card) -> dict:
+    """RandomAccessCorpus.read_batch on the card: READ_BATCHES batches of
+    16 distinct 8,192-frame crops over READ_CLIPS 7/16 clips of 3-109
+    blocks, one cut to 60 % of its bytes and one shorter than a crop; the
+    first batch holds both, its crop of the cut clip reaching past the
+    clip's decodable end. Each batch bit-equal to the plain route (the
+    same call on device="cpu": the plain unpack and synthesis) and to the
+    per-crop backend="host" reads zero-padded; the launch counters reset
+    before each batch and read after it: exactly one unpack and one fused
+    synthesis launch. Returns the launches and the unpack kernel's row on
+    the first batch's wire."""
+    from libacm_tpu_torch.ops import kernels, unpack_cuda
+    from libacm_tpu_torch.parallel import RandomAccessCorpus
+
+    B, F = READ_BATCH_B, READ_CROP_FRAMES
+    rng = np.random.default_rng(20)
+    clips = [testing.speech_acm_bytes(rng, level=7, rows=16,
+                                      n_blocks=int(rng.integers(12, 110)))
+             for _ in range(READ_CLIPS - 1)]
+    clips[0] = clips[0][: int(len(clips[0]) * 0.6)]  # cut mid-stream
+    clips.append(testing.speech_acm_bytes(rng, level=7, rows=16, n_blocks=3))
+    cut, short = 0, len(clips) - 1
+    kw = dict(max_cached_files=len(clips))
+    rac = RandomAccessCorpus(clips, device="cuda", **kw)
+    plain = RandomAccessCorpus(clips, device="cpu", **kw)
+    host = RandomAccessCorpus(clips, backend="host", **kw)
+    frames = [host.pcm_total(i) for i in range(len(clips))]
+    decodable = len(host.read(cut, 0, frames[cut]))
+    check(decodable < frames[cut], "the cut clip decodes whole")
+    draws = []
+    for b in range(READ_BATCHES):
+        files = rng.permutation(len(clips))[:B]
+        if b == 0:
+            files = np.concatenate([[cut, short], [f for f in files if f not in
+                                                   (cut, short)][: B - 2]])
+        starts = [int(rng.integers(0, max(frames[f] - F, 0) + 1))
+                  for f in files]
+        if b == 0:
+            starts[0] = decodable - F // 2  # past the cut clip's end
+        draws.append(([int(f) for f in files], starts))
+    for i in range(len(clips)):  # every index built before the batches
+        rac.pcm_total(i)
+    per_call = expected(synth_cuda, synth_cuda.kernel_launches(7, 16, 8))
+    launches = expected(synth_cuda, {})
+    padded = 0
+    with bench_torch.capture_wires() as wires:
+        for files, starts in draws:
+            kernels.reset_all()
+            got = rac.read_batch(files, starts, F)
+            torch.cuda.synchronize()
+            launched, unpacked = (dict(synth_cuda.launches),
+                                  dict(unpack_cuda.launches))
+            check(launched == per_call and unpacked == unpack_expected(
+                unpack_cuda, 1), f"read_batch launches {launched} "
+                f"{unpacked}, expected {per_call} and one unpack")
+            launches = {k: launches[k] + launched[k] for k in launches}
+            check(tuple(got.shape) == (B, F, 1), f"read_batch shape "
+                  f"{tuple(got.shape)}")
+            got = got.cpu()
+            check(torch.equal(got, plain.read_batch(files, starts, F)),
+                  f"read_batch {files} {starts}: card differs from the "
+                  "plain route")
+            for j, (f, s) in enumerate(zip(files, starts)):
+                want = np.zeros((F, 1), np.int16)
+                seg = host.read(f, s, F)
+                want[: len(seg)] = seg
+                padded += len(seg) < F
+                check(np.array_equal(got[j].numpy(), want),
+                      f"read_batch crop {j} (clip {f}, frame {s}): card "
+                      "differs from backend='host'")
+    check(padded >= 2, f"only {padded} crops padded")
+    print(f"phase 5: read_batch: {READ_BATCHES} batches of {B} crops of {F} "
+          f"frames over {len(clips)} 7/16 clips ({padded} padded) equal to "
+          f"the plain route and to backend='host'; launches {launches}, "
+          "one unpack a batch")
+    (row,) = bench_torch.unpack_rows(
+        torch, [("read_batch", "read_batch", wires[0])],
+        {"read_batch": {"unpack": READ_BATCHES}}, card)
+    check((row["B"], row["nb"]) == (B, 8), f"read_batch unpacked "
+          f"[{row['B']}, {row['nb']}]")
+    print(f"phase 5: {row['name']}, {row['wire_bytes']} wire bytes: kernel "
+          f"{row['ms']:.6f} ms ({row['cold_l2_ms']:.6f} ms with L2 flushed), "
+          f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}), {row['bound_share']:.1%} of bound {card}")
+    return {"launches": launches | {"unpack": READ_BATCHES}, "row": row}
+
+
 def phase5_cli(synth_cuda) -> dict:
     """acmtool -d -r -o in process on the card, equal to the goldens."""
     from libacm_tpu_torch import cli
@@ -640,44 +742,46 @@ def phase5_cli(synth_cuda) -> dict:
 
 def phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card) -> list:
     """The kernel at the shapes the stream and read_segment give it (one
-    file per launch), and at blocks that fit one CTA per SM or none,
+    file per launch) and read_batch gives it, and at blocks that fit one
+    CTA per SM or none,
     against its plain version; CUDA-event times (L2 warm, and flushed
     before each launch) beside the plain version's and the bound. Returns
     a JSON row (launches to be filled in) for each shape of the route of
     blocks over 227 KB, which no path of real files reaches."""
     out = []
-    for what, level, rows, nb in NEW_SHAPES:
-        k, v, w = _random_inputs(torch, dev, level, rows, 1, nb,
+    for what, level, rows, B, nb in [(w, lv, r, 1, n) for w, lv, r, n
+                                     in NEW_SHAPES] + BATCH_SHAPES:
+        k, v, w = _random_inputs(torch, dev, level, rows, B, nb,
                                  seed=level * 7 + nb)
         route = kernel_route(synth_cuda, level, rows, nb)
         got = synth_cuda.synth_pcm_batch(k, v, w, level=level, rows=rows)
         want = synth_torch.synth_pcm_batch(k, v, w, level=level, rows=rows)
         err = _max_err(torch, got, want, level)
-        check(err == 0, f"kernel disagrees at {level}/{rows} [1, {nb}]")
+        check(err == 0, f"kernel disagrees at {level}/{rows} [{B}, {nb}]")
         ms = _time_ms(torch, lambda: synth_cuda.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=20)
         cold_ms = _time_ms_cold(torch, lambda: synth_cuda.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=20)
         plain_ms = _time_ms(torch, lambda: synth_torch.synth_pcm_batch(
             k, v, w, level=level, rows=rows), reps=5)
-        bms, by = bound(level, rows, 1, nb)
-        cfg = synth_cuda.fused_config(level, rows, 1, nb, dev)
+        bms, by = bound(level, rows, B, nb)
+        cfg = synth_cuda.fused_config(level, rows, B, nb, dev)
         shape = (f", tile {cfg['T']}, span {cfg['span']}, grid "
                  f"{cfg['grid']}, {cfg['ctas_per_sm']} CTAs per SM"
                  if cfg else "")
-        print(f"phase 5: synthesis {what} {level}/{rows} [B=1, nb={nb}] "
+        print(f"phase 5: synthesis {what} {level}/{rows} [B={B}, nb={nb}] "
               f"{route}{shape}: kernel {ms} ms ({cold_ms} ms with L2 "
               f"flushed), plain {plain_ms} ms, bound {bms} ms ({by}), "
               f"{bms / ms:.1%} of bound, max abs err {err} {card}")
         if route.endswith("synth_tail"):
             out.append({
-                "name": f"{route} ({what}, [1, {nb}])", "route": "cuda",
+                "name": f"{route} ({what}, [{B}, {nb}])", "route": "cuda",
                 "source": "libacm_tpu_torch/csrc/synth.cu",
                 "replaces": "libacm_tpu/ops/synth_pallas.py:72",
                 "launches": None, "max_abs_err": err, "ms": ms,
                 "cold_l2_ms": cold_ms, "plain_ms": plain_ms, "bound_ms": bms,
                 "bound_by": by, "library_ms": None,
-                "shape": f"level {level}, rows {rows}, B 1, nb {nb}",
+                "shape": f"level {level}, rows {rows}, B {B}, nb {nb}",
                 "launches_per_call": synth_cuda.kernel_launches(level, rows,
                                                                 nb),
             })
@@ -1532,6 +1636,8 @@ def main() -> int:
     paths["stream"] = phase5_stream(torch, synth_cuda, mix_files, card)
     paths["random_access"] = phase5_random_access(torch, synth_cuda, files,
                                                    card)
+    rb5 = phase5_read_batch(torch, synth_cuda, testing, card)
+    paths["read_batch"] = rb5["launches"]
     paths["cli"] = phase5_cli(synth_cuda)
     rows5 = phase5_kernel_times(torch, synth_cuda, synth_torch, dev, card)
     for row in rows5:  # the route that no path of real files reaches
@@ -1584,8 +1690,8 @@ def main() -> int:
     rows67 = path_kernel_rows(torch, synth_cuda, synth_torch, dev, card,
                               st6, sh6, dense7)
     print(json.dumps({"kernels": [kern_rows[r] for r in sorted(kern_rows)]
-                      + unpack_rows + unpack_path_rows + rows7 + rows67
-                      + rows5}))
+                      + unpack_rows + unpack_path_rows + [rb5["row"]]
+                      + rows7 + rows67 + rows5}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -769,16 +769,40 @@ synth_tail_kernel(const int16_t* __restrict__ k, const uint32_t* __restrict__ xi
 
 }  // namespace
 
+// Sets a kernel's largest dynamic shared memory on the current device to
+// `want`, or to what the device allows beside its static shared memory
+// where that is less.
+template <typename Kernel>
+static cudaError_t set_max_dynamic_smem(Kernel kernel, long long want) {
+  cudaFuncAttributes a;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return e;
+  const long long cap = (long long)optin - (long long)a.sharedSizeBytes;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(want < cap ? want : cap));
+}
+
 extern "C" {
 
-static cudaError_t fused_attributes(long long smem_bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      synth_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(synth_fused_kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+// The dynamic shared memory the fused and tail kernels may take (the
+// largest their wrapper asks) and the fused kernel's carveout, set on the
+// current device once, before its first launch or occupancy query
+// (ops/synth_cuda.py::attributes). The launches never set them: a setting
+// between another thread's set and launch broke that launch.
+int acm_synth_attributes(long long fused_smem, long long tail_smem) {
+  cudaError_t e = set_max_dynamic_smem(synth_fused_kernel, fused_smem);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(synth_fused_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  if (e == cudaSuccess) e = set_max_dynamic_smem(synth_tail_kernel, tail_smem);
+  return (int)e;
 }
 
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -786,8 +810,6 @@ int acm_synth_fused(const void* k, const void* vals, const void* wrap0,
                     void* pcm, void* wrapf, int B, int nb, int level, int rows,
                     int T, int span, int warm, int threads,
                     long long smem_bytes, void* stream) {
-  cudaError_t e = fused_attributes(smem_bytes);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid((nb + span - 1) / span, B);
   synth_fused_kernel<<<grid, threads, (size_t)smem_bytes, (cudaStream_t)stream>>>(
       (const int16_t*)k, (const int32_t*)vals, (const int32_t*)wrap0,
@@ -801,11 +823,8 @@ int acm_synth_occupancy(int route, int threads, long long smem_bytes) {
   cudaError_t e = cudaSuccess;
   int n = 0;
   if (route == 0) {
-    e = fused_attributes(smem_bytes);
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_fused_kernel, threads,
-                                                        (size_t)smem_bytes);
-    }
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_fused_kernel, threads,
+                                                      (size_t)smem_bytes);
   } else {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, synth_level0_kernel<8>, threads,
                                                       0);
@@ -848,9 +867,6 @@ int acm_synth_tail(const void* k, const void* xin, const void* vals,
                    const void* wrap0, void* pcm, void* wrapf, int B, int nb,
                    int level, int rows, int p0, int TL, int vec, int grid_x,
                    int threads, long long smem_bytes, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      synth_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-  if (e != cudaSuccess) return (int)e;
   synth_tail_kernel<<<dim3(grid_x, B), threads, (size_t)smem_bytes, (cudaStream_t)stream>>>(
       (const int16_t*)k, (const uint32_t*)xin, (const int32_t*)vals,
       (const int32_t*)wrap0, (int16_t*)pcm, (int32_t*)wrapf, nb, level, rows, p0, TL, vec);

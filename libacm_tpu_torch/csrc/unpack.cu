@@ -690,6 +690,25 @@ Geo geo_from(const long long* a) {
 
 extern "C" {
 
+// The dynamic shared memory the kernel may take, the largest its wrapper
+// asks (or what the device allows, where less), set on the current device
+// once before its first launch
+// (ops/unpack_cuda.py::_attributes): a launch never sets it, so launches
+// from several threads cannot break one another's.
+int acm_unpack_attributes(int smem) {
+  cudaFuncAttributes a;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, unpack_kernel);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int cap = optin - (int)a.sharedSizeBytes;
+  return (int)cudaFuncSetAttribute(
+      unpack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem < cap ? smem : cap);
+}
+
 // The geometry array `geo` (40 long longs, host memory) is laid out as
 // geo_from reads it; ops/unpack_cuda.py::geometry builds it. `status` is
 // the scratch of ops/unpack_cuda.py (ticket counter and status words),
@@ -699,11 +718,6 @@ int acm_unpack(const void* blob, const long long* geo, void* status,
                void* vals, void* wrap0, void* k, int grid, int smem,
                void* stream) {
   const Geo g = geo_from(geo);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        unpack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   unpack_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)blob, g, (u64*)status, (int32_t*)vals, (int32_t*)wrap0,
       (int16_t*)k);

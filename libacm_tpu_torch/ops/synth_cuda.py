@@ -163,6 +163,9 @@ def _load():
                 ci, ci,  # warm-up blocks, threads
                 ctypes.c_longlong, vp,  # smem bytes, stream
             ]
+            lib.acm_synth_attributes.restype = ci
+            lib.acm_synth_attributes.argtypes = [ctypes.c_longlong,
+                                                 ctypes.c_longlong]
             lib.acm_synth_occupancy.restype = ci
             lib.acm_synth_occupancy.argtypes = [ci, ci, ctypes.c_longlong]
             lib.acm_synth_level0.restype = ci
@@ -274,6 +277,35 @@ def tail_smem_bytes(level: int) -> int:
     return 2 * 4 * (tail_halo(level) + TAIL_TILE)
 
 
+#: the most shared memory a tail CTA takes, at any level
+TAIL_SMEM_MAX = max(tail_smem_bytes(level) for level in range(16))
+
+#: (library, device index) pairs whose kernel attributes are set
+_attributed: set[tuple[int, int]] = set()
+
+
+def attributes(lib, device: torch.device) -> None:
+    """Set the fused and tail kernels' dynamic shared memory to the most
+    their wrapper asks (ONE_CTA_SMEM, TAIL_SMEM_MAX) and the fused
+    kernel's carveout, once per library and card, under the wrappers'
+    lock. The launches never set them: a setting between another thread's
+    setting and its launch broke that launch."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (id(lib), index)
+    if key in _attributed:
+        return
+    with _LOCK:
+        if key in _attributed:
+            return
+        with torch.cuda.device(index):
+            rc = lib.acm_synth_attributes(ONE_CTA_SMEM, TAIL_SMEM_MAX)
+        if rc:
+            raise RuntimeError(f"setting the synthesis kernels' shared "
+                               f"memory failed: cudaError {rc}")
+        _attributed.add(key)
+
+
 def kernel_launches(level: int, rows: int, nb: int) -> dict[str, int]:
     """The launches one call of synth_pcm_batch makes on [B, nb] blocks
     of this geometry (nb > 0), by kernel."""
@@ -303,6 +335,7 @@ def ctas_per_sm(kernel: str, smem_bytes: int, device: torch.device) -> int:
     key = (device.index or 0, kernel, smem_bytes)
     if key not in _occupancy:
         lib = _load()
+        attributes(lib, device)
         index, threads = _KERNELS[kernel]
         with torch.cuda.device(device):
             n = lib.acm_synth_occupancy(index, threads, smem_bytes)
@@ -382,6 +415,7 @@ def synth_pcm_batch(
     wrapf = (torch.empty((B, 2 * cols - 2), dtype=torch.int32, device=dev)
              if level else wrap0)
     lib = _load()
+    attributes(lib, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if level == 0:

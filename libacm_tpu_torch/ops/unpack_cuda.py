@@ -80,8 +80,32 @@ def _load():
                 vp, ctypes.POINTER(ctypes.c_longlong), vp,  # blob, geo, status
                 vp, vp, vp, ci, ci, vp,  # vals, wrap0, k, grid, smem, stream
             ]
+            lib.acm_unpack_attributes.restype = ci
+            lib.acm_unpack_attributes.argtypes = [ci]
             _lib = lib
     return _lib
+
+
+#: (library, device index) pairs whose kernel attribute is set
+_attributed: set[tuple[int, int]] = set()
+
+
+def attributes(lib, device: torch.device) -> None:
+    """Set the kernel's dynamic shared memory to the most a call asks
+    (SMEM_MAX), once per library and card, under the wrapper's lock. A
+    launch never sets it: a setting between another thread's setting and
+    its launch broke that launch."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (id(lib), index)
+    if key in _attributed:
+        return
+    with _LOCK:
+        if key in _attributed:
+            return
+        with torch.cuda.device(index):
+            _raise(lib.acm_unpack_attributes(SMEM_MAX), "unpack_attributes")
+        _attributed.add(key)
 
 
 def tile_columns(level: int, rows: int, ncols: int) -> int:
@@ -125,6 +149,12 @@ def plan(level: int, rows: int, batch: int, nb: int,
             "span": span, "smem": span + 4 * tc,
             "grid": sum(nwt) + nct + nvw, "stride": (cols + 3) // 4,
             "magic": -(-(1 << 32) // rows)}
+
+
+#: the most dynamic shared memory a call asks: plan's "smem" at the widest
+#: column tile of any rows (no call halves it further up)
+SMEM_MAX = max(2 * tc * rows + 3 * 48 + 4 * tc for rows in range(1, 4096)
+               for tc in [tile_columns(15, rows, 1 << 40)])
 
 
 def unpack_launches(level: int, batch: int, nb: int,
@@ -234,6 +264,7 @@ def unpack_cols_blob(
     if not unpack_launches(level, batch, nb, has_wrap):
         return k, vals, wrap0
     lib = _load()
+    attributes(lib, dev)
     words = 1 + sum(p["nwt"]) + 3 * p["nct"]
     with torch.cuda.device(dev), _Scratch._lock:
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -725,18 +725,24 @@ def _scan_cols_wire(chunk: list[_FileEntry], level: int, rows: int, nb: int,
             w.vals, w.wrap0), w
 
 
-def _coalesce_wire(arrays, wirebufs=None) -> tuple[np.ndarray, tuple]:
+def _coalesce_wire(arrays, wirebufs=None,
+                   out: np.ndarray | None = None) -> tuple[np.ndarray, tuple]:
     """Pack the nine wire sections into ONE contiguous uint8 buffer.
 
     One copy to the device per chunk, sliced back apart on the device at
     the offsets of ops.synth_torch.cols_blob_layout — the order here must
     match it: cls, pay4/8/16, wid4/8/16, vals, wrap0. The memcpy runs on
     the submitter thread, overlapped with the main thread's scan of the
-    next chunk. Returns (blob view, payload/width section lengths)."""
+    next chunk. The buffer is `out` when given (a part of a larger blob,
+    as a random-access batch lays out its geometries), else the wire
+    buffers' own blob when it fits, else a new array. Returns (blob view,
+    payload/width section lengths)."""
     sections = tuple(arrays)
     lens = tuple(a.nbytes for a in sections[1:7])
     total = sum(a.nbytes for a in sections)
-    if wirebufs is not None and len(wirebufs.blob) >= total:
+    if out is not None:
+        blob = out
+    elif wirebufs is not None and len(wirebufs.blob) >= total:
         blob = wirebufs.blob
     else:
         blob = np.empty(total, np.uint8)

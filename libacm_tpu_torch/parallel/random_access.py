@@ -18,8 +18,22 @@ rows == 1 streams fall back to decoding the prefix [0, b).
 
 The port of libacm_tpu/parallel/random_access.py. Step 2 runs on the
 card by default — the corpus path's cols-wire unpack and the CUDA
-synthesis kernel, one file per launch — and backend="host" takes the
-fused native host decoder (the JAX package's default route).
+synthesis kernel — and backend="host" takes the fused native host
+decoder (the JAX package's default route). A segment's device read is
+the batch read below with one crop, fetched to the host.
+
+`RandomAccessCorpus.read_batch(files, starts, frames)` is the training
+loader's read: B crops of B files at once, left on the card as int16
+[B, frames, channels]. Its B span scans run in one GIL-free native call
+over the spans' bytes staged back to back, its wire crosses in one blob
+(from pinned memory, without waiting), and each geometry of the batch
+takes one unpack and one synthesis launch over [B, nb] blocks; a gather
+on the card cuts each crop out of its row and zero-pads it past its
+clip's decodable end (HiFi-GAN's rule for a clip shorter than a crop).
+The PCM stays on the card because a training step reads it there: a
+fetch to the host and a copy back would cost two copies and a
+synchronisation a batch. Nothing in it synchronises, so the caller's
+next batch is scanned while the card works on this one.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from ..device import resolve_device
 from ..format import AcmHeader
 from ..scan import native
 from ..scan.oracle import BitReader, parse_header
+from ..utils import profiling
 from .corpus import _round_up
 
 
@@ -105,38 +120,25 @@ def _bufs(nbytes: int) -> native.CorpusScanBuffers:
     return bufs
 
 
-def _scan_span(data: bytes, header: AcmHeader, start_bit: int | None,
-               max_blocks: int, bitpos_out: np.ndarray | None = None,
-               pooled: bool = False, device: torch.device | None = None):
-    """Scan up to max_blocks from start_bit into wire buffers.
-
-    pooled=True routes through the corpus layer's reusable wire-buffer
-    pool for `device` (the serving path: read_segment calls at a fixed
-    bucketed shape must not page-fault fresh multi-MB buffers per
-    request; a CPU target is never pooled); the caller must have copied
-    the arrays to the device before the next pooled call on this thread.
-    """
-    rows, cols = header.rows, header.cols
-    if pooled:
-        from .corpus import _acquire_wire_bufs
-
-        w = _acquire_wire_bufs(1, max_blocks, header.level, rows, device)
-        cls, pwr, vals = w.cls, w.pwr, w.vals
-        pay = (w.pay4, w.pay8, w.pay16)
-        wid = (w.wid4, w.wid8, w.wid16)
-    else:
-        ncols_cap = max_blocks * cols
-        c4, c8, c16, cw = native.pay_stream_caps(ncols_cap, rows)
-        cls = np.zeros((1, max_blocks, (cols + 3) // 4), dtype=np.uint8)
-        pwr = np.zeros((1, max_blocks), dtype=np.uint8)
-        vals = np.zeros((1, max_blocks), dtype=np.uint16)
-        pay = tuple(np.zeros(c, dtype=np.uint8) for c in (c4, c8, c16))
-        wid = tuple(np.zeros(cw, dtype=np.uint8) for _ in range(3))
-    ng, err, ncol, bits, oor, _events = native.scan_corpus_into(
-        data, header, cls[0], pwr[0], vals[0], *pay, *wid,
-        _bufs(len(data)), start_bit=start_bit, bitpos_out=bitpos_out,
-    )
-    return ng, err, cls, vals, pay, wid, ncol, bits, oor
+def _index_scratch(max_blocks: int, level: int, rows: int) -> tuple:
+    """This thread's wire arrays for index scans of a geometry, grown to
+    max_blocks: an index scan keeps only the block offsets, and the
+    scanner never reads back what it has not written in this scan (as
+    native.scan_bytes_packed reuses its scratch), so no file pays a fresh
+    zeroed allocation and its page faults."""
+    pool = getattr(_TLS, "index_scratch", None)
+    if pool is None:
+        pool = _TLS.index_scratch = {}
+    have = pool.get((level, rows))
+    if have is None or have[0].shape[0] < max_blocks:
+        cap = 1 << max(6, (max_blocks - 1).bit_length())
+        cols = 1 << level
+        c4, c8, c16, cw = native.pay_stream_caps(cap * cols, rows)
+        have = pool[(level, rows)] = (
+            np.zeros((cap, (cols + 3) // 4), np.uint8),
+            np.zeros(cap, np.uint8), np.zeros(cap, np.uint16),
+            *(np.zeros(c, np.uint8) for c in (c4, c8, c16, cw, cw, cw)))
+    return have
 
 
 def build_index(data: bytes) -> BlockIndex:
@@ -147,9 +149,9 @@ def build_index(data: bytes) -> BlockIndex:
         raise ValueError("not an ACM stream")
     cap = header.max_blocks_in(len(data))
     bitpos = np.zeros(cap, dtype=np.int64)
-    out = _scan_span(data, header, None, cap, bitpos)
-    ng, err, oor = out[0], out[1], out[-1]
-    del out  # release the wire arrays before the bitpos copy
+    ng, err, _, _, oor, _ = native.scan_corpus_into(
+        data, header, *_index_scratch(cap, header.level, header.rows),
+        _bufs(len(data)), bitpos_out=bitpos, max_blocks=cap)
     return BlockIndex(header=header, bitpos=bitpos[:ng].copy(), n_good=ng,
                       first_err=err, oor=oor)
 
@@ -166,7 +168,10 @@ class RandomAccessCorpus:
     accumulate the whole corpus in RSS — bytes re-read from the source
     on a miss), while the small BlockIndexes (8 bytes/block) are kept in
     a much larger LRU (`max_cached_indexes`) so an evicted file's next
-    read skips the O(file) index rescan.
+    read skips the O(file) index rescan. A training loader that draws
+    crops from every clip of an epoch (`read_batch`) should set
+    `max_cached_files` to its whole training set: a smaller LRU re-reads
+    nearly every file of a shuffled epoch from its source.
     """
 
     def __init__(self, sources, force_chans: int = 0,
@@ -272,9 +277,337 @@ class RandomAccessCorpus:
                              backend=self._backend, device=self._device)
         return words[: len(words) - len(words) % ch].reshape(-1, ch)
 
+    def read_batch(self, files, starts, frames: int, *,
+                   pad: bool = True) -> torch.Tensor:
+        """int16 [B, frames, channels] crops, crop j of file files[j] from
+        frame starts[j], in the order asked, on the corpus's device.
+
+        Crop j is bit-equal to read(files[j], starts[j], frames) followed
+        by zero frames up to `frames`: past a clip's decodable end the
+        frames are zeros with pad=True, and pad=False raises ValueError
+        instead. Every file of one batch must have the same channel count
+        (ValueError otherwise); geometries may mix, each taking its own
+        unpack and synthesis launch. On a card the call does not
+        synchronise: a caller on the same stream reads the tensor in
+        order, as a training step does. A file whose coefficients leave
+        the amplitude table (BlockIndex.oor) is decoded exactly on the
+        host and its crop copied in with the rest. backend="host" returns
+        the crops on the CPU from the native host decoder.
+        """
+        files = [int(i) for i in files]
+        starts = [int(s) for s in starts]
+        frames = int(frames)
+        if len(files) != len(starts):
+            raise ValueError(f"{len(files)} files but {len(starts)} starts")
+        if not files:
+            raise ValueError("read_batch needs at least one crop")
+        if frames < 0:
+            raise ValueError(f"frames must be >= 0, got {frames}")
+        with profiling.call("libacm.random_access.batch", crops=len(files)):
+            profiling.count("libacm.random_access.crops", len(files))
+            with profiling.span("libacm.random_access.index"):
+                entries = [self._entry(i) for i in files]
+            chans = sorted({ch for _, _, ch in entries})
+            if len(chans) != 1:
+                raise ValueError("a batch needs files of one channel count, "
+                                 f"got {chans}")
+            crops = [_plan_crop(j, files[j], data, idx, starts[j], frames,
+                                chans[0], pad)
+                     for j, (data, idx, _) in enumerate(entries)]
+            if self._backend == "host":
+                return _crops_on_host(crops, frames, chans[0])
+            return _crops_on_device(crops, frames, chans[0], self._device)
+
     @property
     def cached_files(self) -> int:
         return len(self._data_lru)
+
+
+@dataclasses.dataclass
+class _Crop:
+    """One crop of a batch (or the one segment of read_segment): where it
+    lies in its file's words, and the span of blocks a read synthesizes
+    for it (W warm-up blocks before block a: 1 for rows >= 2, the whole
+    prefix for rows == 1)."""
+
+    row: int
+    data: bytes
+    index: BlockIndex
+    start_word: int
+    #: the crop's words that exist (a whole number of frames)
+    valid: int
+    #: first block synthesized, blocks synthesized, of them warm-up ones
+    a0: int = 0
+    nb: int = 0
+    warm: int = 0
+    #: the crop's first word in its row of synthesized blocks
+    lo: int = 0
+
+    @property
+    def on_device(self) -> bool:
+        return self.valid > 0 and not self.index.oor
+
+    def blocks_needed(self, words: int) -> int:
+        """Blocks a row must hold so that `words` words from lo lie in it
+        (past nb they are zeros of the pad, never read as PCM)."""
+        bl = self.index.header.block_len
+        return max(self.nb, -(-(self.lo + words) // bl))
+
+
+def _plan_crop(row: int, file: int, data: bytes, index: BlockIndex,
+               start: int, frames: int, ch: int, pad: bool) -> _Crop:
+    h = index.header
+    bl = h.block_len
+    want = frames * ch
+    end_avail = min(h.total_values, index.words_avail)
+    start_word = max(0, start * ch)
+    stop_word = min(start_word + want, end_avail)
+    valid = max(0, stop_word - start_word)
+    valid -= valid % ch
+    if valid < want and not pad:
+        raise ValueError(f"crop {row} (file {file}, frame {start}): "
+                         f"{valid // ch} of {frames} frames decodable and "
+                         "pad=False")
+    c = _Crop(row, data, index, start_word, valid)
+    if c.on_device:
+        a = start_word // bl
+        b = -(-stop_word // bl)
+        c.warm = 1 if (a > 0 and h.rows >= 2) else a
+        c.a0 = a - c.warm
+        c.nb = b - c.a0
+        c.lo = start_word - c.a0 * bl
+    return c
+
+
+def _host_words(c: _Crop, want: int) -> np.ndarray:
+    """The crop's words, zero-padded to `want`, decoded on the host: an
+    exact full decode of a stale-amp-table file, nothing for a crop past
+    its clip's end."""
+    out = np.zeros(want, dtype=np.int16)
+    if c.valid:
+        from ..scan import oracle as _oracle
+
+        with profiling.span("libacm.random_access.host_decode"):
+            _, pcm, _ = _oracle.decode_bytes(c.data)
+        out[: c.valid] = pcm[c.start_word : c.start_word + c.valid]
+    return out
+
+
+def _crops_on_host(crops: list[_Crop], frames: int, ch: int) -> torch.Tensor:
+    out = np.zeros((len(crops), frames * ch), dtype=np.int16)
+    for c in crops:
+        if c.valid:
+            out[c.row, : c.valid] = read_segment(
+                c.data, c.index, c.start_word, c.valid, backend="host")
+    return torch.from_numpy(out).view(len(crops), frames, ch)
+
+
+#: bytes staged past a span's last block: the scanner stops at the
+#: block's end, and a few more keep its prefetch on the file's own bytes
+_SPAN_SLACK = 16
+#: alignment of each geometry's wire and of the host rows in a batch blob
+_BLOB_ALIGN = 256
+#: staging blobs per thread and card that may be in flight at once
+_STAGING_MAX = 8
+
+
+class _Staging:
+    """A pinned host blob and the event recorded after its copy."""
+
+    def __init__(self, nbytes: int):
+        self.tensor = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        self.array = self.tensor.numpy()
+        self.copied: torch.cuda.Event | None = None
+
+    def free(self) -> bool:
+        return self.copied is None or self.copied.query()
+
+
+def _staging(device: torch.device, nbytes: int) -> _Staging:
+    """A pinned blob of at least nbytes for a copy to `device`, free of
+    any copy in flight; at _STAGING_MAX in flight, wait for the oldest."""
+    pools = getattr(_TLS, "staging", None)
+    if pools is None:
+        pools = _TLS.staging = {}
+    pool: list[_Staging] = pools.setdefault(device, [])
+    for s in pool:
+        if s.tensor.numel() >= nbytes and s.free():
+            pool.remove(s)
+            pool.append(s)  # the most recently used last
+            return s
+    if len(pool) >= _STAGING_MAX:  # every blob in flight: wait
+        s = pool.pop(0)
+        if s.copied is not None:
+            s.copied.synchronize()
+        if s.tensor.numel() < nbytes:
+            s = _Staging(1 << (nbytes - 1).bit_length())
+    else:
+        s = _Staging(1 << max(20, (nbytes - 1).bit_length()))
+    pool.append(s)
+    return s
+
+
+def _arange(device: torch.device, n: int) -> torch.Tensor:
+    """torch.arange(n) on `device`, made once (by a copy that has finished
+    when it returns, so any stream may read it)."""
+    cache = getattr(_TLS, "arange", None)
+    if cache is None:
+        cache = _TLS.arange = {}
+    key = (device, n)
+    if key not in cache:
+        cache[key] = torch.arange(n).to(device)
+    return cache[key]
+
+
+def _scan_group(crops: list[_Crop], level: int, rows: int, nbp: int,
+                device: torch.device):
+    """The spans of one geometry's crops scanned in ONE native call, each
+    from its warm-up block's bit (bytes staged back to back), into the
+    wire of a [len(crops), nbp] launch; returns its nine sections."""
+    from .corpus import _acquire_wire_bufs
+
+    b = len(crops)
+    w = _acquire_wire_bufs(b, nbp, level, rows, device)
+    first, last = [], []
+    for c in crops:
+        idx = c.index
+        bit = int(idx.bitpos[c.a0]) if c.a0 else 8 * idx.header.data_start
+        end = c.a0 + c.nb
+        stop = (len(c.data) if end >= idx.n_good else
+                min(len(c.data), -(-int(idx.bitpos[end]) // 8) + _SPAN_SLACK))
+        first.append(bit)
+        last.append(stop)
+    first_a = np.asarray(first, dtype=np.int64)
+    lo_bytes = first_a // 8
+    lens = np.asarray(last, dtype=np.int64) - lo_bytes
+    if lens.min() <= 0:  # the index points past the file's bytes
+        raise _stale(crops[int(lens.argmin())].nb, 0)
+    offs = np.zeros(b, dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    total = int(offs[-1] + lens[-1])
+    blob = getattr(_TLS, "span_blob", None)
+    if blob is None or len(blob) < total:
+        blob = _TLS.span_blob = np.empty(max(total * 2, 1 << 16), np.uint8)
+    for c, o, lb, n in zip(crops, offs.tolist(), lo_bytes.tolist(),
+                           lens.tolist()):
+        blob[o : o + n] = np.frombuffer(c.data, np.uint8, n, lb)
+    out, _, ncol, bits = native.scan_corpus_chunk(
+        blob, offs, lens, first_a - 8 * lo_bytes,
+        np.asarray([c.nb for c in crops], dtype=np.int64), level, rows,
+        w.cls, w.pwr, w.vals, w.pay4, w.pay8, w.pay16,
+        w.wid4, w.wid8, w.wid16, _bufs(int(lens.max())), nbp + 64)
+    for c, ng in zip(crops, out[:, 0].tolist()):
+        if ng < c.nb:
+            raise _stale(c.nb, ng)
+
+    def _sl(arr, used_bytes):
+        n = min(_round_up(used_bytes + 2, 256), len(arr))
+        return arr[: n - (n & 1)]
+
+    return (w.cls,
+            _sl(w.pay4, -(-bits[0] // 8)), _sl(w.pay8, -(-bits[1] // 8)),
+            _sl(w.pay16, -(-bits[2] // 8)),
+            _sl(w.wid4, -(-ncol[0] // 2)), _sl(w.wid8, -(-ncol[1] // 2)),
+            _sl(w.wid16, -(-ncol[2] // 2)), w.vals, w.wrap0)
+
+
+def _crops_on_device(crops: list[_Crop], frames: int, ch: int,
+                     device: torch.device) -> torch.Tensor:
+    """read_batch's device route: the scans, one blob copied in, one
+    unpack and one synthesis launch per geometry, then the gather."""
+    from ..ops.synth_torch import synth_pcm_cols_blob
+    from .corpus import _coalesce_wire
+
+    B, want = len(crops), frames * ch
+    if not want:
+        return torch.zeros((B, frames, ch), dtype=torch.int16, device=device)
+    groups: dict[tuple[int, int], list[_Crop]] = {}
+    host = []
+    for c in crops:
+        if c.on_device:
+            h = c.index.header
+            groups.setdefault((h.level, h.rows), []).append(c)
+        else:
+            host.append(c)
+    # the wire of each geometry, then the host rows, then int64 metadata:
+    # each group's crop offsets and valid words, and the batch order
+    parts, off = [], 0
+    for (level, rows), cs in groups.items():
+        nbp = _round_up(max(c.blocks_needed(want) for c in cs), 8)
+        with profiling.span("libacm.random_access.scan", level=level,
+                            rows=rows, crops=len(cs)):
+            secs = _scan_group(cs, level, rows, nbp, device)
+        size = sum(a.nbytes for a in secs)
+        parts.append((level, rows, cs, nbp, secs, off, size))
+        off = _round_up(off + size, _BLOB_ALIGN)
+        synthesized = len(cs) * nbp
+        warm = sum(c.warm for c in cs)
+        profiling.count("libacm.random_access.blocks", synthesized)
+        profiling.count("libacm.random_access.warmup_blocks", warm)
+        profiling.count("libacm.random_access.pad_blocks",
+                        synthesized - sum(c.nb for c in cs))
+    host_off = off
+    host_rows = [_host_words(c, want) for c in host]
+    off = _round_up(off + 2 * want * len(host), 8)
+    order = [c.row for _, _, cs, *_ in parts for c in cs] + [
+        c.row for c in host]
+    meta = [np.asarray([c.lo for c in cs] + [c.valid for c in cs], np.int64)
+            for _, _, cs, *_ in parts]
+    if order != list(range(B)):
+        inverse = np.empty(B, np.int64)
+        inverse[order] = np.arange(B)
+        meta.append(inverse)
+    meta_off, total = off, off + 8 * sum(len(m) for m in meta)
+
+    with profiling.span("libacm.random_access.copy") as sp:
+        if device.type == "cuda":
+            stage = _staging(device, total)
+            blob = stage.array
+        else:
+            # a CPU tensor aliases its array: never reuse it
+            stage, blob = None, np.empty(total, np.uint8)
+        lens = [_coalesce_wire(secs, out=blob[o : o + size])[1]
+                for _, _, _, _, secs, o, size in parts]
+        for r, words in enumerate(host_rows):
+            o = host_off + 2 * want * r
+            blob[o : o + 2 * want] = words.view(np.uint8)
+        if meta:
+            blob[meta_off:total] = np.concatenate(meta).view(np.uint8)
+        if stage is None:
+            dev_blob = torch.from_numpy(blob)
+        else:
+            dev_blob = stage.tensor[:total].to(device, non_blocking=True)
+            if stage.copied is None:
+                stage.copied = torch.cuda.Event()
+            stage.copied.record(torch.cuda.current_stream(device))
+            if sp.recording:
+                profiling.count("libacm.copy.h2d_bytes.pinned", total)
+
+    with profiling.span("libacm.random_access.launch"):
+        meta_dev = dev_blob[meta_off:total].view(torch.int64)
+        outs, m = [], 0
+        for (level, rows, cs, nbp, _, o, size), ln in zip(parts, lens):
+            pcm, _ = synth_pcm_cols_blob(
+                dev_blob[o : o + size], level=level, rows=rows,
+                batch=len(cs), nb=nbp, backend="cuda", lens=ln)
+            lo = meta_dev[m : m + len(cs)]
+            valid = meta_dev[m + len(cs) : m + 2 * len(cs)]
+            m += 2 * len(cs)
+            # one crop (a segment read): a view of its row, no gather
+            got = (pcm.view(1, -1)[:, cs[0].lo : cs[0].lo + want]
+                   if len(cs) == 1 else pcm.view(len(cs), -1).gather(
+                       1, lo[:, None] + _arange(device, want)))
+            if any(c.valid < want for c in cs):  # zeros past a clip's end
+                got = torch.where(_arange(device, want) < valid[:, None],
+                                  got, 0)
+            outs.append(got)
+        if host:
+            outs.append(dev_blob[host_off : host_off + 2 * want * len(host)]
+                        .view(torch.int16).view(len(host), want))
+        out = torch.cat(outs) if len(outs) > 1 else outs[0]
+        if m < len(meta_dev):
+            out = out.index_select(0, meta_dev[m:])
+    return out.view(B, frames, ch)
 
 
 def _check_backend(backend) -> None:
@@ -303,77 +636,29 @@ def read_segment(data: bytes, index: BlockIndex, start_word: int,
     returns possibly fewer words at the tail, empty beyond it.
 
     backend=None (the default) synthesizes the span on `device` (None: the
-    card, or $LIBACM_TPU_TORCH_DEVICE; raises without one): the span's
-    cols-wire, copied in one blob, unpacked and synthesized by the corpus
-    path's kernel wrapper (the CUDA kernel on a card, its plain version on
-    the CPU), then fetched. backend="host" decodes the span with the fused
+    card, or $LIBACM_TPU_TORCH_DEVICE; raises without one) by
+    read_batch's device route with one crop: the span's cols-wire, copied
+    in one blob, unpacked and synthesized by the corpus path's kernel
+    wrapper (the CUDA kernel on a card, its plain version on the CPU),
+    then the crop fetched. backend="host" decodes the span with the fused
     native host decoder (one C++ sweep; the JAX package's default route).
     Both routes raise ValueError for an index that no longer fits the
     bytes.
     """
     _check_backend(backend)
     dev = None if backend == "host" else resolve_device(device)
-    h = index.header
-    bl = h.block_len
-    end_avail = min(h.total_values, index.words_avail)
-    start_word = max(0, start_word)
-    stop_word = min(start_word + max(0, n_words), end_avail)
-    if stop_word <= start_word:
+    c = _plan_crop(0, 0, data, index, start_word, max(0, n_words), 1, True)
+    if not c.valid:
         return np.zeros(0, dtype=np.int16)
-
     if index.oor:
         # stale-amp-table stream: only a full host decode is exact
-        from ..scan import oracle as _oracle
-
-        _, pcm, _ = _oracle.decode_bytes(data)
-        return pcm[start_word:stop_word].copy()
-
-    a = start_word // bl
-    b = -(-stop_word // bl)
-    warm = 1 if (a > 0 and h.rows >= 2) else a  # rows==1: prefix fallback
-    a0 = a - warm
-    nb = b - a0
-    lo = start_word - a0 * bl
-    start_bit = int(index.bitpos[a0]) if a0 > 0 else None
-
+        return _host_words(c, c.valid)
     if backend == "host":
-        hd = native.decode_host(data, header=h, max_blocks=nb,
-                                start_bit=start_bit)
-        if hd.n_good != nb:
-            raise _stale(nb, hd.n_good)
+        hd = native.decode_host(data, header=index.header, max_blocks=c.nb,
+                                start_bit=int(index.bitpos[c.a0]) if c.a0
+                                else None)
+        if hd.n_good != c.nb:
+            raise _stale(c.nb, hd.n_good)
         # copy: hd.pcm is a view of a refcount-gated pooled buffer
-        return hd.pcm[lo : lo + (stop_word - start_word)].copy()
-
-    nbp = _round_up(nb, 8)
-    ng, err, cls, vals, pay, wid, ncol, bits, _oorseg = _scan_span(
-        data, h, start_bit, nbp, pooled=True, device=dev)
-    if ng < nb:
-        raise _stale(nb, ng)
-
-    from ..ops.synth_torch import synth_pcm_cols_blob
-    from .corpus import _coalesce_wire
-
-    def _sl(arr, used_bytes):
-        n = min(_round_up(used_bytes + 2, 256), len(arr))
-        return arr[: n - (n & 1)]
-
-    # the pooled arrays are read only by this memcpy into a fresh blob;
-    # the blob's copy to the device and the synchronous .cpu() below both
-    # finish before return, so the buffer set is free for the next call
-    blob, lens = _coalesce_wire((
-        cls,
-        _sl(pay[0], -(-bits[0] // 8)),
-        _sl(pay[1], -(-bits[1] // 8)),
-        _sl(pay[2], -(-bits[2] // 8)),
-        _sl(wid[0], -(-ncol[0] // 2)),
-        _sl(wid[1], -(-ncol[1] // 2)),
-        _sl(wid[2], -(-ncol[2] // 2)),
-        vals,
-        np.zeros((1, h.wrapbuf_len), np.int32),
-    ))
-    pcm, _ = synth_pcm_cols_blob(
-        torch.from_numpy(blob).to(dev), level=h.level, rows=h.rows, batch=1,
-        nb=nbp, backend="cuda", lens=lens,
-    )
-    flat = pcm[0].cpu().numpy().reshape(-1)
-    return flat[lo : lo + (stop_word - start_word)]
+        return hd.pcm[c.lo : c.lo + c.valid].copy()
+    return _crops_on_device([c], c.valid, 1, dev).view(-1).cpu().numpy()

@@ -64,6 +64,9 @@ def phases(sc, dev, inputs) -> list[dict]:
                                                            vp]
     lib.acm_synth_prof_take.restype = ci
     lib.acm_synth_prof_take.argtypes = [vp]
+    lib.acm_synth_attributes.restype = ci
+    lib.acm_synth_attributes.argtypes = [ctypes.c_longlong] * 2
+    sc.attributes(lib, dev)
     trace = np.zeros((4096, 16), dtype=np.int64)
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = []
@@ -122,6 +125,7 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda", 0)
     lib = sc._load()
+    sc.attributes(lib, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def inputs(level, rows, B, nb):
