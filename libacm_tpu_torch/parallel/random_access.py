@@ -24,12 +24,13 @@ the batch read below with one crop, fetched to the host.
 
 `RandomAccessCorpus.read_batch(files, starts, frames)` is the training
 loader's read: B crops of B files at once, left on the card as int16
-[B, frames, channels]. Its B span scans run in one GIL-free native call
-over the spans' bytes staged back to back, its wire crosses in one blob
-(from pinned memory, without waiting), and each geometry of the batch
-takes one unpack and one synthesis launch over [B, nb] blocks; a gather
-on the card cuts each crop out of its row and zero-pads it past its
-clip's decodable end (HiFi-GAN's rule for a clip shorter than a crop).
+[B, frames, channels]. One GIL-free native call plans the B crops, scans
+their spans in place in their clips' bytes and lays the batch's wire and
+metadata out in one pinned blob, which crosses without waiting; each
+geometry of the batch takes one unpack and one synthesis launch over
+[B, nb] blocks; a gather on the card cuts each crop out of its row and
+zero-pads it past its clip's decodable end (HiFi-GAN's rule for a clip
+shorter than a crop).
 The PCM stays on the card because a training step reads it there: a
 fetch to the host and a copy back would cost two copies and a
 synchronisation a batch. Nothing in it synchronises, so the caller's
@@ -39,6 +40,7 @@ next batch is scanned while the card works on this one.
 from __future__ import annotations
 
 import dataclasses
+import struct
 import threading
 
 import numpy as np
@@ -49,7 +51,6 @@ from ..format import AcmHeader
 from ..scan import native
 from ..scan.oracle import BitReader, parse_header
 from ..utils import profiling
-from .corpus import _round_up
 
 
 @dataclasses.dataclass
@@ -192,6 +193,10 @@ class RandomAccessCorpus:
         self._max_indexes = max(1, max_cached_indexes)
         self._data_lru: "dict[int, bytes]" = {}
         self._index_lru: "dict[int, tuple[BlockIndex, int]]" = {}
+        #: each cached file's entry (bytes, index, channels, its row of
+        #: the native crop table, what the row points into), registered
+        #: once and dropped with the file's bytes
+        self._clip_rows: "dict[int, tuple]" = {}
         #: serving is typically multi-threaded; the LRUs mutate on every
         #: read, so cache admission/eviction runs under one lock (the
         #: segment decode itself is outside it — scans are GIL-free and
@@ -208,15 +213,31 @@ class RandomAccessCorpus:
             self._index_dir.mkdir(parents=True, exist_ok=True)
 
     @staticmethod
-    def _touch(lru: dict, key, cap: int, value):
-        """Insert/refresh under the caller's lock; evict past cap."""
+    def _touch(lru: dict, key, cap: int, value) -> list:
+        """Insert/refresh under the caller's lock; evict past cap, and
+        return the keys evicted."""
         lru.pop(key, None)
+        gone = []
         while len(lru) >= cap:
-            lru.pop(next(iter(lru)))  # evict least recently used
+            gone.append(next(iter(lru)))  # evict least recently used
+            del lru[gone[-1]]
         lru[key] = value
-        return value
+        return gone
 
-    def _entry(self, i: int):
+    def _register(self, i: int, data, hit: tuple) -> tuple:
+        """File i's entry, under the caller's lock: registered anew in
+        the native crop table only where its bytes or its index changed."""
+        reg = self._clip_rows.get(i)
+        if reg is None or reg[0] is not data or reg[1] is not hit[0]:
+            idx, ch = hit
+            row, keep = native.clip_row(data, idx.bitpos, idx.header,
+                                        idx.n_good, ch, idx.oor)
+            reg = self._clip_rows[i] = (data, idx, ch, row, keep)
+        return reg
+
+    def _entry(self, i: int) -> tuple:
+        """(bytes, BlockIndex, channels, native crop table row, what the
+        row points into) of file i."""
         # The lock covers only LRU lookup/admission; the expensive work
         # (file IO, the O(file) index scan — both GIL-releasing) runs
         # OUTSIDE it so cold first-touches from many serving threads
@@ -231,16 +252,17 @@ class RandomAccessCorpus:
             if hit is not None:
                 self._index_lru[i] = hit
                 if data is not None:  # both warm: done (serving steady state)
-                    return data, hit[0], hit[1]
+                    return self._register(i, data, hit)
         if data is None:
             data = self._read_source(self._sources[i])
         if hit is None:
             hit = self._make_index(data)
         with self._lock:
-            self._touch(self._data_lru, i, self._max_files, data)
-            idx, ch = self._touch(self._index_lru, i, self._max_indexes,
-                                  hit)
-        return data, idx, ch
+            for gone in self._touch(self._data_lru, i, self._max_files,
+                                    data):
+                self._clip_rows.pop(gone, None)  # unregister what is dropped
+            self._touch(self._index_lru, i, self._max_indexes, hit)
+            return self._register(i, data, hit)
 
     def _make_index(self, data: bytes):
         from ..format import resolve_channels
@@ -267,15 +289,16 @@ class RandomAccessCorpus:
         return idx, ch
 
     def pcm_total(self, i: int) -> int:
-        data, idx, ch = self._entry(i)
+        _, idx, ch, *_ = self._entry(i)
         return idx.header.total_values // ch
 
     def read(self, i: int, start_pcm: int, n_pcm: int) -> np.ndarray:
         """int16 [n, channels] frames from file i (clamped at stream end)."""
-        data, idx, ch = self._entry(i)
-        words = read_segment(data, idx, start_pcm * ch, n_pcm * ch,
-                             backend=self._backend, device=self._device)
-        return words[: len(words) - len(words) % ch].reshape(-1, ch)
+        entry = self._entry(i)
+        ch = entry[2]
+        words = _segment(entry, start_pcm, n_pcm, ch, self._backend,
+                         self._device)
+        return words.reshape(-1, ch)
 
     def read_batch(self, files, starts, frames: int, *,
                    pad: bool = True) -> torch.Tensor:
@@ -307,16 +330,17 @@ class RandomAccessCorpus:
             profiling.count("libacm.random_access.crops", len(files))
             with profiling.span("libacm.random_access.index"):
                 entries = [self._entry(i) for i in files]
-            chans = sorted({ch for _, _, ch in entries})
+            chans = sorted({e[2] for e in entries})
             if len(chans) != 1:
                 raise ValueError("a batch needs files of one channel count, "
                                  f"got {chans}")
-            crops = [_plan_crop(j, files[j], data, idx, starts[j], frames,
-                                chans[0], pad)
-                     for j, (data, idx, _) in enumerate(entries)]
             if self._backend == "host":
-                return _crops_on_host(crops, frames, chans[0])
-            return _crops_on_device(crops, frames, chans[0], self._device)
+                return _crops_on_host(
+                    [_plan_crop(j, files[j], e[0], e[1], starts[j], frames,
+                                chans[0], pad)
+                     for j, e in enumerate(entries)], frames, chans[0])
+            return _crops_on_device(entries, starts, frames, chans[0],
+                                    self._device, pad=pad, files=files)
 
     @property
     def cached_files(self) -> int:
@@ -325,10 +349,11 @@ class RandomAccessCorpus:
 
 @dataclasses.dataclass
 class _Crop:
-    """One crop of a batch (or the one segment of read_segment): where it
-    lies in its file's words, and the span of blocks a read synthesizes
-    for it (W warm-up blocks before block a: 1 for rows >= 2, the whole
-    prefix for rows == 1)."""
+    """One crop of read_batch's host route, or the one segment of
+    read_segment: where it lies in its file's words, and the span of
+    blocks a read synthesizes for it (W warm-up blocks before block a: 1
+    for rows >= 2, the whole prefix for rows == 1). read_batch's device
+    route plans its crops the same way, natively (acm_scan_crops)."""
 
     row: int
     data: bytes
@@ -347,11 +372,12 @@ class _Crop:
     def on_device(self) -> bool:
         return self.valid > 0 and not self.index.oor
 
-    def blocks_needed(self, words: int) -> int:
-        """Blocks a row must hold so that `words` words from lo lie in it
-        (past nb they are zeros of the pad, never read as PCM)."""
-        bl = self.index.header.block_len
-        return max(self.nb, -(-(self.lo + words) // bl))
+
+def _pad_refused(row: int, file: int, start: int, valid: int, frames: int,
+                 ch: int) -> ValueError:
+    return ValueError(f"crop {row} (file {file}, frame {start}): "
+                      f"{valid // ch} of {frames} frames decodable and "
+                      "pad=False")
 
 
 def _plan_crop(row: int, file: int, data: bytes, index: BlockIndex,
@@ -365,9 +391,7 @@ def _plan_crop(row: int, file: int, data: bytes, index: BlockIndex,
     valid = max(0, stop_word - start_word)
     valid -= valid % ch
     if valid < want and not pad:
-        raise ValueError(f"crop {row} (file {file}, frame {start}): "
-                         f"{valid // ch} of {frames} frames decodable and "
-                         "pad=False")
+        raise _pad_refused(row, file, start, valid, frames, ch)
     c = _Crop(row, data, index, start_word, valid)
     if c.on_device:
         a = start_word // bl
@@ -379,17 +403,17 @@ def _plan_crop(row: int, file: int, data: bytes, index: BlockIndex,
     return c
 
 
-def _host_words(c: _Crop, want: int) -> np.ndarray:
-    """The crop's words, zero-padded to `want`, decoded on the host: an
-    exact full decode of a stale-amp-table file, nothing for a crop past
-    its clip's end."""
+def _host_words(data, start_word: int, valid: int, want: int) -> np.ndarray:
+    """A crop's `valid` words from `start_word`, zero-padded to `want`,
+    decoded on the host: an exact full decode of a stale-amp-table file,
+    nothing for a crop past its clip's end."""
     out = np.zeros(want, dtype=np.int16)
-    if c.valid:
+    if valid:
         from ..scan import oracle as _oracle
 
         with profiling.span("libacm.random_access.host_decode"):
-            _, pcm, _ = _oracle.decode_bytes(c.data)
-        out[: c.valid] = pcm[c.start_word : c.start_word + c.valid]
+            _, pcm, _ = _oracle.decode_bytes(data)
+        out[:valid] = pcm[start_word : start_word + valid]
     return out
 
 
@@ -402,13 +426,10 @@ def _crops_on_host(crops: list[_Crop], frames: int, ch: int) -> torch.Tensor:
     return torch.from_numpy(out).view(len(crops), frames, ch)
 
 
-#: bytes staged past a span's last block: the scanner stops at the
-#: block's end, and a few more keep its prefetch on the file's own bytes
-_SPAN_SLACK = 16
-#: alignment of each geometry's wire and of the host rows in a batch blob
-_BLOB_ALIGN = 256
 #: staging blobs per thread and card that may be in flight at once
 _STAGING_MAX = 8
+#: a first frame past the end of any clip, within an int64
+_START_MAX = 1 << 62
 
 
 class _Staging:
@@ -417,6 +438,7 @@ class _Staging:
     def __init__(self, nbytes: int):
         self.tensor = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
         self.array = self.tensor.numpy()
+        self.address = self.array.ctypes.data
         self.copied: torch.cuda.Event | None = None
 
     def free(self) -> bool:
@@ -459,122 +481,108 @@ def _arange(device: torch.device, n: int) -> torch.Tensor:
     return cache[key]
 
 
-def _scan_group(crops: list[_Crop], level: int, rows: int, nbp: int,
+def _crop_tables(n: int) -> tuple[np.ndarray, int]:
+    """This thread's int64 result array of native.scan_crops, for n crops,
+    and its address."""
+    have = getattr(_TLS, "crop_tables", None)
+    size = native.CROP_HEAD + (native.CROP_GEOM + native.CROP_INFO) * n
+    if have is None or len(have[0]) < size:
+        a = np.zeros(max(size, 1024), dtype=np.int64)
+        have = _TLS.crop_tables = (a, a.ctypes.data)
+    return have
+
+
+def _scan_crops(entries, starts: list[int], frames: int, pad: bool,
                 device: torch.device):
-    """The spans of one geometry's crops scanned in ONE native call, each
-    from its warm-up block's bit (bytes staged back to back), into the
-    wire of a [len(crops), nbp] launch; returns its nine sections."""
-    from .corpus import _acquire_wire_bufs
-
-    b = len(crops)
-    w = _acquire_wire_bufs(b, nbp, level, rows, device)
-    first, last = [], []
-    for c in crops:
-        idx = c.index
-        bit = int(idx.bitpos[c.a0]) if c.a0 else 8 * idx.header.data_start
-        end = c.a0 + c.nb
-        stop = (len(c.data) if end >= idx.n_good else
-                min(len(c.data), -(-int(idx.bitpos[end]) // 8) + _SPAN_SLACK))
-        first.append(bit)
-        last.append(stop)
-    first_a = np.asarray(first, dtype=np.int64)
-    lo_bytes = first_a // 8
-    lens = np.asarray(last, dtype=np.int64) - lo_bytes
-    if lens.min() <= 0:  # the index points past the file's bytes
-        raise _stale(crops[int(lens.argmin())].nb, 0)
-    offs = np.zeros(b, dtype=np.int64)
-    np.cumsum(lens[:-1], out=offs[1:])
-    total = int(offs[-1] + lens[-1])
-    blob = getattr(_TLS, "span_blob", None)
-    if blob is None or len(blob) < total:
-        blob = _TLS.span_blob = np.empty(max(total * 2, 1 << 16), np.uint8)
-    for c, o, lb, n in zip(crops, offs.tolist(), lo_bytes.tolist(),
-                           lens.tolist()):
-        blob[o : o + n] = np.frombuffer(c.data, np.uint8, n, lb)
-    out, _, ncol, bits = native.scan_corpus_chunk(
-        blob, offs, lens, first_a - 8 * lo_bytes,
-        np.asarray([c.nb for c in crops], dtype=np.int64), level, rows,
-        w.cls, w.pwr, w.vals, w.pay4, w.pay8, w.pay16,
-        w.wid4, w.wid8, w.wid16, _bufs(int(lens.max())), nbp + 64)
-    for c, ng in zip(crops, out[:, 0].tolist()):
-        if ng < c.nb:
-            raise _stale(c.nb, ng)
-
-    def _sl(arr, used_bytes):
-        n = min(_round_up(used_bytes + 2, 256), len(arr))
-        return arr[: n - (n & 1)]
-
-    return (w.cls,
-            _sl(w.pay4, -(-bits[0] // 8)), _sl(w.pay8, -(-bits[1] // 8)),
-            _sl(w.pay16, -(-bits[2] // 8)),
-            _sl(w.wid4, -(-ncol[0] // 2)), _sl(w.wid8, -(-ncol[1] // 2)),
-            _sl(w.wid16, -(-ncol[2] // 2)), w.vals, w.wrap0)
-
-
-def _crops_on_device(crops: list[_Crop], frames: int, ch: int,
-                     device: torch.device) -> torch.Tensor:
-    """read_batch's device route: the scans, one blob copied in, one
-    unpack and one synthesis launch per geometry, then the gather."""
-    from ..ops.synth_torch import synth_pcm_cols_blob
-    from .corpus import _coalesce_wire
-
-    B, want = len(crops), frames * ch
-    if not want:
-        return torch.zeros((B, frames, ch), dtype=torch.int16, device=device)
-    groups: dict[tuple[int, int], list[_Crop]] = {}
-    host = []
-    for c in crops:
-        if c.on_device:
-            h = c.index.header
-            groups.setdefault((h.level, h.rows), []).append(c)
-        else:
-            host.append(c)
-    # the wire of each geometry, then the host rows, then int64 metadata:
-    # each group's crop offsets and valid words, and the batch order
-    parts, off = [], 0
-    for (level, rows), cs in groups.items():
-        nbp = _round_up(max(c.blocks_needed(want) for c in cs), 8)
-        with profiling.span("libacm.random_access.scan", level=level,
-                            rows=rows, crops=len(cs)):
-            secs = _scan_group(cs, level, rows, nbp, device)
-        size = sum(a.nbytes for a in secs)
-        parts.append((level, rows, cs, nbp, secs, off, size))
-        off = _round_up(off + size, _BLOB_ALIGN)
-        synthesized = len(cs) * nbp
-        warm = sum(c.warm for c in cs)
-        profiling.count("libacm.random_access.blocks", synthesized)
-        profiling.count("libacm.random_access.warmup_blocks", warm)
-        profiling.count("libacm.random_access.pad_blocks",
-                        synthesized - sum(c.nb for c in cs))
-    host_off = off
-    host_rows = [_host_words(c, want) for c in host]
-    off = _round_up(off + 2 * want * len(host), 8)
-    order = [c.row for _, _, cs, *_ in parts for c in cs] + [
-        c.row for c in host]
-    meta = [np.asarray([c.lo for c in cs] + [c.valid for c in cs], np.int64)
-            for _, _, cs, *_ in parts]
-    if order != list(range(B)):
-        inverse = np.empty(B, np.int64)
-        inverse[order] = np.arange(B)
-        meta.append(inverse)
-    meta_off, total = off, off + 8 * sum(len(m) for m in meta)
-
-    with profiling.span("libacm.random_access.copy") as sp:
+    """native.scan_crops of the batch into a blob for `device` (pinned for
+    a card, a new array for the CPU), called again with a larger blob
+    where the layout may not fit. Returns (status, the int64 result
+    array, the blob: a _Staging or an array)."""
+    n = len(entries)
+    table = b"".join([e[3] for e in entries])
+    try:
+        firsts = struct.pack(f"{n}q", *starts)
+    except struct.error:  # a start beyond int64: past any clip's end
+        firsts = struct.pack(f"{n}q", *(min(max(s, 0), _START_MAX)
+                                         for s in starts))
+    res, res_address = _crop_tables(n)
+    need = getattr(_TLS, "crop_blob_bytes", 1 << 20)
+    while True:
         if device.type == "cuda":
-            stage = _staging(device, total)
-            blob = stage.array
+            blob = _staging(device, need)
+            address, cap = blob.address, blob.tensor.numel()
         else:
             # a CPU tensor aliases its array: never reuse it
-            stage, blob = None, np.empty(total, np.uint8)
-        lens = [_coalesce_wire(secs, out=blob[o : o + size])[1]
-                for _, _, _, _, secs, o, size in parts]
-        for r, words in enumerate(host_rows):
-            o = host_off + 2 * want * r
-            blob[o : o + 2 * want] = words.view(np.uint8)
-        if meta:
-            blob[meta_off:total] = np.concatenate(meta).view(np.uint8)
+            blob = np.empty(need, np.uint8)
+            address, cap = blob.ctypes.data, need
+        status = native.scan_crops(table, firsts, n, frames, pad, address,
+                                   cap, res_address)
+        if status != native.CROPS_BLOB_SMALL:
+            return status, res, blob
+        need = _TLS.crop_blob_bytes = int(res[1])
+
+
+def _raise_for(status: int, info: np.ndarray, files, starts, frames: int,
+               ch: int):
+    """The ValueError of a batch native.scan_crops refused, as the Python
+    plan raised it: the first crop short of its frames with pad=False,
+    else the stale geometry's first crop whose span starts past its bytes,
+    else its first that decoded fewer blocks than its index says."""
+    codes = info[:, 0].tolist()
+    if status == native.CROPS_PAD_REFUSED:
+        j = codes.index(native.CROP_PAD)
+        raise _pad_refused(j, files[j], starts[j], int(info[j, 3]), frames,
+                           ch)
+    past = native.CROP_PAST in codes
+    j = codes.index(native.CROP_PAST if past else native.CROP_STALE)
+    raise _stale(int(info[j, 4]), 0 if past else int(info[j, 5]))
+
+
+def _crops_on_device(entries, starts: list[int], frames: int, ch: int,
+                     device: torch.device, *, pad: bool = True,
+                     files=None) -> torch.Tensor:
+    """read_batch's device route over `entries` (each crop's entry, as
+    RandomAccessCorpus._entry gives it, in batch order): one native call
+    plans the crops, scans their spans and lays out the blob, copied in
+    once; one unpack and one synthesis launch a geometry, then the
+    gather. `files` names the crops in the pad=False error."""
+    from ..ops.synth_torch import synth_pcm_cols_blob
+
+    B, want = len(entries), frames * ch
+    if not want:
+        return torch.zeros((B, frames, ch), dtype=torch.int16, device=device)
+    H, G, I = native.CROP_HEAD, native.CROP_GEOM, native.CROP_INFO
+    # a batch of stale-amp-table clips alone has no span to scan
+    scans = any(not e[1].oor for e in entries)
+    with (profiling.span("libacm.random_access.scan") if scans
+          else profiling.OFF):
+        status, res, blob = _scan_crops(entries, starts, frames, pad, device)
+    if status != native.CROPS_DONE:
+        _raise_for(status, res[H + G * B : H + (G + I) * B].reshape(B, I),
+                   files, starts, frames, ch)
+    _, total, n_geo, n_host, host_off, meta_off, n_dev, reordered = (
+        res[:H].tolist())
+    geos = res[H : H + G * n_geo].reshape(n_geo, G).tolist()
+    for g in geos:
+        profiling.count("libacm.random_access.blocks", g[2] * g[3])
+        profiling.count("libacm.random_access.warmup_blocks", g[12])
+        profiling.count("libacm.random_access.pad_blocks", g[13])
+    if n_dev:
+        profiling.count("libacm.random_access.native_crops", n_dev)
+    stage = blob if isinstance(blob, _Staging) else None
+    if n_host:  # host-decoded rows, in batch order, where the call left room
+        host = stage.array if stage is not None else blob
+        info = res[H + G * B : H + (G + I) * B].reshape(B, I)
+        o = host_off
+        for j in np.flatnonzero(info[:, 0] == native.CROP_HOST).tolist():
+            host[o : o + 2 * want] = _host_words(
+                entries[j][0], int(info[j, 2]), int(info[j, 3]),
+                want).view(np.uint8)
+            o += 2 * want
+
+    with profiling.span("libacm.random_access.copy") as sp:
         if stage is None:
-            dev_blob = torch.from_numpy(blob)
+            dev_blob = torch.from_numpy(blob[:total])
         else:
             dev_blob = stage.tensor[:total].to(device, non_blocking=True)
             if stage.copied is None:
@@ -586,26 +594,27 @@ def _crops_on_device(crops: list[_Crop], frames: int, ch: int,
     with profiling.span("libacm.random_access.launch"):
         meta_dev = dev_blob[meta_off:total].view(torch.int64)
         outs, m = [], 0
-        for (level, rows, cs, nbp, _, o, size), ln in zip(parts, lens):
+        for (level, rows, count, nbp, o, size, *lens, _, _, short,
+             lo0) in geos:
             pcm, _ = synth_pcm_cols_blob(
-                dev_blob[o : o + size], level=level, rows=rows,
-                batch=len(cs), nb=nbp, backend="cuda", lens=ln)
-            lo = meta_dev[m : m + len(cs)]
-            valid = meta_dev[m + len(cs) : m + 2 * len(cs)]
-            m += 2 * len(cs)
+                dev_blob[o : o + size], level=level, rows=rows, batch=count,
+                nb=nbp, backend="cuda", lens=tuple(lens))
+            lo = meta_dev[m : m + count]
+            valid = meta_dev[m + count : m + 2 * count]
+            m += 2 * count
             # one crop (a segment read): a view of its row, no gather
-            got = (pcm.view(1, -1)[:, cs[0].lo : cs[0].lo + want]
-                   if len(cs) == 1 else pcm.view(len(cs), -1).gather(
+            got = (pcm.view(1, -1)[:, lo0 : lo0 + want] if count == 1 else
+                   pcm.view(count, -1).gather(
                        1, lo[:, None] + _arange(device, want)))
-            if any(c.valid < want for c in cs):  # zeros past a clip's end
+            if short:  # zeros past a clip's end
                 got = torch.where(_arange(device, want) < valid[:, None],
                                   got, 0)
             outs.append(got)
-        if host:
-            outs.append(dev_blob[host_off : host_off + 2 * want * len(host)]
-                        .view(torch.int16).view(len(host), want))
+        if n_host:
+            outs.append(dev_blob[host_off : host_off + 2 * want * n_host]
+                        .view(torch.int16).view(n_host, want))
         out = torch.cat(outs) if len(outs) > 1 else outs[0]
-        if m < len(meta_dev):
+        if reordered:
             out = out.index_select(0, meta_dev[m:])
     return out.view(B, frames, ch)
 
@@ -647,12 +656,22 @@ def read_segment(data: bytes, index: BlockIndex, start_word: int,
     """
     _check_backend(backend)
     dev = None if backend == "host" else resolve_device(device)
-    c = _plan_crop(0, 0, data, index, start_word, max(0, n_words), 1, True)
+    return _segment((data, index, 1), start_word, n_words, 1, backend, dev)
+
+
+def _segment(entry: tuple, start: int, n: int, ch: int, backend,
+             dev) -> np.ndarray:
+    """The words of frames [start, start + n) of `entry`'s clip (clamped
+    at its decodable end) by read_segment's routes. `entry` is (bytes,
+    BlockIndex, channels), followed by its row of the native crop table
+    and what that points into where the caller has registered it."""
+    data, index = entry[0], entry[1]
+    c = _plan_crop(0, 0, data, index, start, max(0, n), ch, True)
     if not c.valid:
         return np.zeros(0, dtype=np.int16)
     if index.oor:
         # stale-amp-table stream: only a full host decode is exact
-        return _host_words(c, c.valid)
+        return _host_words(data, c.start_word, c.valid, c.valid)
     if backend == "host":
         hd = native.decode_host(data, header=index.header, max_blocks=c.nb,
                                 start_bit=int(index.bitpos[c.a0]) if c.a0
@@ -661,4 +680,8 @@ def read_segment(data: bytes, index: BlockIndex, start_word: int,
             raise _stale(c.nb, hd.n_good)
         # copy: hd.pcm is a view of a refcount-gated pooled buffer
         return hd.pcm[c.lo : c.lo + c.valid].copy()
-    return _crops_on_device([c], c.valid, 1, dev).view(-1).cpu().numpy()
+    if len(entry) == 3:
+        entry += native.clip_row(data, index.bitpos, index.header,
+                                 index.n_good, ch, index.oor)
+    return _crops_on_device([entry], [start], c.valid // ch, ch,
+                            dev).view(-1).cpu().numpy()

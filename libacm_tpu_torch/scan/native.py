@@ -1,4 +1,5 @@
-"""ctypes loader/wrapper for the C++ scanner (`_scan.cpp`).
+"""ctypes loader/wrapper for the C++ scanner (`_scan.cpp`, built inside
+`_crops.cpp`, which adds the port's random-access entry).
 
 Compiles the shared object on demand with g++ (no Python headers needed —
 the ABI is plain C arrays) into a content-hash-keyed cache next to this
@@ -25,7 +26,10 @@ from . import oracle
 from .oracle import BitReader, ScanResult, parse_header
 
 _HERE = pathlib.Path(__file__).resolve().parent
+#: the scanner shared with the JAX package (byte-identical to its copy)
 _SRC = _HERE / "_scan.cpp"
+#: the translation unit built: _SRC, included, and the port's own entries
+_UNIT = _HERE / "_crops.cpp"
 
 _lib = None
 _tried = False
@@ -42,7 +46,10 @@ def _build() -> pathlib.Path | None:
     sparse speech. -fprofile-partial-training keeps static heuristics for
     any code path the trainer missed (instead of treating it as cold).
     """
-    src = _SRC.read_bytes()
+    try:
+        src = _SRC.read_bytes() + _UNIT.read_bytes()
+    except OSError:
+        return None  # a source missing from the install: no native path
     tag = hashlib.sha256(src + b"|pgo2").hexdigest()[:16]
     cache_dir = pathlib.Path(
         os.environ.get("LIBACM_TPU_TORCH_CACHE", _HERE / "_build")
@@ -63,21 +70,22 @@ def _build() -> pathlib.Path | None:
         # Ice-Lake-class cores don't downclock for 512-bit integer ops.
         cc = ["g++", "-O3", "-march=native", "-mprefer-vector-width=512",
               "-std=c++17", "-fPIC"]
-        plain = cc + ["-shared", "-o", str(tmp_path), str(_SRC)]
+        plain = cc + ["-shared", "-o", str(tmp_path), str(_UNIT)]
         try:
             subprocess.run(plain, check=True, capture_output=True)
         except subprocess.CalledProcessError:
             # portability fallback (non-x86 or older gcc)
             cc.remove("-march=native")
             cc.remove("-mprefer-vector-width=512")
-            plain = cc + ["-shared", "-o", str(tmp_path), str(_SRC)]
+            plain = cc + ["-shared", "-o", str(tmp_path), str(_UNIT)]
             subprocess.run(plain, check=True, capture_output=True)
         try:
             with tempfile.TemporaryDirectory(dir=cache_dir) as work:
                 obj = str(pathlib.Path(work) / "scan_prof.o")
                 prof_so = str(pathlib.Path(work) / "scan_prof.so")
                 subprocess.run(
-                    cc + ["-fprofile-generate", "-c", str(_SRC), "-o", obj],
+                    cc + ["-fprofile-generate", "-c", str(_UNIT), "-o",
+                          obj],
                     check=True, capture_output=True)
                 subprocess.run(
                     ["g++", "-shared", "-fprofile-generate", "-o", prof_so,
@@ -89,7 +97,7 @@ def _build() -> pathlib.Path | None:
                     subprocess.run(
                         cc + ["-fprofile-use", "-fprofile-correction",
                               "-fprofile-partial-training",
-                              "-c", str(_SRC), "-o", obj],
+                              "-c", str(_UNIT), "-o", obj],
                         check=True, capture_output=True)
                     subprocess.run(
                         ["g++", "-shared", "-o", str(tmp_path), obj],
@@ -222,6 +230,14 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_int16),  # events_out
         ctypes.POINTER(ctypes.c_int16),  # col_tmp
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
+    fr = lib.acm_scan_crops
+    fr.restype = ctypes.c_int64
+    fr.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p,  # clip rows, starts (int64 each)
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,  # n, frames, pad
+        ctypes.c_void_p, ctypes.c_int64,  # blob, its capacity
+        ctypes.c_void_p,  # out
     ]
     fh = lib.acm_decode_host
     fh.restype = ctypes.c_int64
@@ -573,6 +589,42 @@ def scan_corpus_chunk(
     m = bufs.meta
     return (out, events, (int(m[5]), int(m[6]), int(m[7])),
             (int(m[12]), int(m[13]), int(m[14])))
+
+
+#: scan_crops's result: a head, a row a geometry, a row a crop (int64)
+CROP_HEAD, CROP_GEOM, CROP_INFO = 8, 16, 8
+#: a crop's code in its result row
+CROP_DEVICE, CROP_HOST, CROP_STALE, CROP_PAST, CROP_PAD = range(5)
+#: scan_crops's status
+CROPS_DONE, CROPS_PAD_REFUSED, CROPS_STALE, CROPS_BLOB_SMALL = range(4)
+
+
+def clip_row(data, bitpos: np.ndarray, header: AcmHeader, n_good: int,
+             channels: int, oor: bool) -> tuple[bytes, tuple]:
+    """A clip's row of scan_crops's table, and the arrays that must stay
+    alive while a call reads it. The row is ten int64 (CLIP_* in
+    _crops.cpp): the address and length of the clip's bytes, the address of
+    its int64 block bits, n_good, total_values, level, rows, data_start,
+    channels and oor."""
+    d = np.frombuffer(data, dtype=np.uint8)
+    bp = np.ascontiguousarray(bitpos, dtype=np.int64)
+    row = np.array([d.ctypes.data, len(d), bp.ctypes.data, n_good,
+                    header.total_values, header.level, header.rows,
+                    header.data_start, channels, int(oor)], dtype=np.int64)
+    return row.tobytes(), (d, bp)
+
+
+def scan_crops(clips: bytes, starts: bytes, n: int, frames: int, pad: bool,
+               blob: int, cap: int, out: int) -> int:
+    """One GIL-free call that plans n crops, scans their spans in place and
+    lays their wire and metadata out in the blob at address `blob`
+    (`cap` bytes); `clips` holds n rows of clip_row, `starts` n int64
+    first frames, `out` the address of an int64 array of at least
+    CROP_HEAD + (CROP_GEOM + CROP_INFO) * n. Returns a CROPS_* status; the
+    layout and the tables are documented at acm_scan_crops in _crops.cpp.
+    """
+    return _load().acm_scan_crops(clips, starts, n, frames, 1 if pad else 0,
+                                  blob, cap, out)
 
 
 #: Per-thread scratch for scan_bytes_packed: the PackedEmitter tolerates

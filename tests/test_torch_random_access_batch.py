@@ -278,7 +278,8 @@ def test_spans_and_counters_under_a_profiler_only():
     assert torch.equal(got, plain)
     assert set(t["spans"]) == BATCH_SPANS
     assert t["spans"]["libacm.random_access.batch"]["count"] == 1
-    assert t["spans"]["libacm.random_access.scan"]["count"] == 2  # geometries
+    # one native call plans, scans and lays out the batch's two geometries
+    assert t["spans"]["libacm.random_access.scan"]["count"] == 1
     (root,) = [r for r in recs if r.name == "libacm.random_access.batch"]
     assert all(r.call == root.id for r in recs)
     assert all(r.parent == root.id for r in recs if r is not root)
@@ -336,6 +337,34 @@ def test_card_batch_equals_cpu_and_copies_from_pinned_memory():
         assert torch.equal(got.cpu(), cpu.read_batch(files, starts, 8192))
     _, t, _ = _traced_batch(card, [0, 1], [100, 200], 8192)
     assert t["counters"]["libacm.copy.h2d_bytes.pinned"] > 0
+
+
+@pytest.mark.cuda
+def test_card_batch_of_the_native_call_copies_its_blob_once():
+    """Batches of 16 crops of 8,192 frames over 7/16 speech clips, each
+    planned, scanned and laid out by the one native call, are bit-equal to
+    the CPU route; every crop takes the call, and the pinned copy counts
+    the call's blob once a batch."""
+    from libacm_tpu_torch.parallel import random_access
+
+    dev = _card()
+    rng = np.random.default_rng(21)
+    srcs = [testing.speech_acm_bytes(rng, level=7, rows=16, n_blocks=int(n))
+            for n in rng.integers(12, 40, 24)]
+    card = RandomAccessCorpus(srcs, device=dev, max_cached_files=24)
+    cpu = RandomAccessCorpus(srcs, device="cpu", max_cached_files=24)
+    for _ in range(4):
+        files = rng.permutation(24)[:16].tolist()
+        starts = [int(rng.integers(0, max(0, cpu.pcm_total(i) - 8192) + 1))
+                  for i in files]
+        got, t, _ = _traced_batch(card, files, starts, 8192)
+        blob_bytes = int(random_access._TLS.crop_tables[0][1])
+        assert torch.equal(got.cpu(), cpu.read_batch(files, starts, 8192))
+        c = t["counters"]
+        assert c["libacm.random_access.native_crops"] == 16
+        assert c["libacm.random_access.crops"] == 16
+        assert c["libacm.copy.h2d_bytes.pinned"] == blob_bytes
+        assert t["spans"]["libacm.random_access.copy"]["count"] == 1
 
 
 @pytest.mark.cuda
