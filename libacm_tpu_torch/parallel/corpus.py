@@ -653,11 +653,7 @@ def _scan_cols_wire(chunk: list[_FileEntry], level: int, rows: int, nb: int,
     b = len(chunk)
     w = _acquire_wire_bufs(b, nb, level, rows, device)
 
-    max_bytes = max(e.nbytes for e in chunk)
-    bufs = getattr(_SCAN_TLS, "bufs", None)
-    if bufs is None or not bufs.fits(max_bytes):
-        bufs = _native.CorpusScanBuffers(max_file_bytes=max(1 << 22, max_bytes))
-        _SCAN_TLS.bufs = bufs
+    bufs = _native.scan_buffers(max(e.nbytes for e in chunk))
 
     # stage file bytes back to back (readinto: no intermediate bytes
     # objects); a file that grew since the header peek is scanned at its
@@ -725,24 +721,20 @@ def _scan_cols_wire(chunk: list[_FileEntry], level: int, rows: int, nb: int,
             w.vals, w.wrap0), w
 
 
-def _coalesce_wire(arrays, wirebufs=None,
-                   out: np.ndarray | None = None) -> tuple[np.ndarray, tuple]:
+def _coalesce_wire(arrays, wirebufs=None) -> tuple[np.ndarray, tuple]:
     """Pack the nine wire sections into ONE contiguous uint8 buffer.
 
     One copy to the device per chunk, sliced back apart on the device at
     the offsets of ops.synth_torch.cols_blob_layout — the order here must
     match it: cls, pay4/8/16, wid4/8/16, vals, wrap0. The memcpy runs on
     the submitter thread, overlapped with the main thread's scan of the
-    next chunk. The buffer is `out` when given (a part of a larger blob,
-    as a random-access batch lays out its geometries), else the wire
-    buffers' own blob when it fits, else a new array. Returns (blob view,
-    payload/width section lengths)."""
+    next chunk. The buffer is the wire buffers' own blob when it fits,
+    else a new array. Returns (blob view, payload/width section
+    lengths)."""
     sections = tuple(arrays)
     lens = tuple(a.nbytes for a in sections[1:7])
     total = sum(a.nbytes for a in sections)
-    if out is not None:
-        blob = out
-    elif wirebufs is not None and len(wirebufs.blob) >= total:
+    if wirebufs is not None and len(wirebufs.blob) >= total:
         blob = wirebufs.blob
     else:
         blob = np.empty(total, np.uint8)

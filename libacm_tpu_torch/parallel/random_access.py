@@ -5,19 +5,18 @@ The reference's seek is reset + decode-forward: O(target) every time
 one-time scan builds a **BlockIndex** (each block's absolute starting bit
 offset — the reader state at any consumed-bit count is reconstructible in
 O(1), see BitReader::seek_to_bit in _scan.cpp); afterwards any segment
-decodes in O(segment):
+decodes in O(segment): its blocks are scanned from a warm-up block's
+indexed bit and synthesized with a zero carry, and the warm-up block's
+output is dropped — exact because, for rows >= 2, an unknown carry
+pollutes only each pass's head region while the outgoing carries come
+from pass-input tails (ops.synth_torch.carry_of_block discussion);
+rows == 1 streams warm up over the whole prefix. Every read, on either
+route, is a batch of crops planned by one native call, acm_scan_crops
+in scan/_crops.cpp (native.scan_crops): which words of a crop exist,
+and which blocks it synthesizes. That plan lives there alone.
 
-  1. scan blocks [a-1, b) starting at index[a-1] (one warm-up block);
-  2. synthesize them with a zero carry and drop block a-1's output —
-     exact because, for rows >= 2, an unknown carry pollutes only each
-     pass's head region while the outgoing carries come from pass-input
-     tails (ops.synth_torch.carry_of_block discussion);
-  3. slice/clamp to the requested words.
-
-rows == 1 streams fall back to decoding the prefix [0, b).
-
-The port of libacm_tpu/parallel/random_access.py. Step 2 runs on the
-card by default — the corpus path's cols-wire unpack and the CUDA
+The port of libacm_tpu/parallel/random_access.py. The synthesis runs on
+the card by default — the corpus path's cols-wire unpack and the CUDA
 synthesis kernel — and backend="host" takes the fused native host
 decoder (the JAX package's default route). A segment's device read is
 the batch read below with one crop, fetched to the host.
@@ -113,14 +112,6 @@ class BlockIndex:
 _TLS = threading.local()
 
 
-def _bufs(nbytes: int) -> native.CorpusScanBuffers:
-    bufs = getattr(_TLS, "bufs", None)
-    if bufs is None or not bufs.fits(nbytes):
-        bufs = native.CorpusScanBuffers(max_file_bytes=max(1 << 22, nbytes))
-        _TLS.bufs = bufs
-    return bufs
-
-
 def _index_scratch(max_blocks: int, level: int, rows: int) -> tuple:
     """This thread's wire arrays for index scans of a geometry, grown to
     max_blocks: an index scan keeps only the block offsets, and the
@@ -152,7 +143,7 @@ def build_index(data: bytes) -> BlockIndex:
     bitpos = np.zeros(cap, dtype=np.int64)
     ng, err, _, _, oor, _ = native.scan_corpus_into(
         data, header, *_index_scratch(cap, header.level, header.rows),
-        _bufs(len(data)), bitpos_out=bitpos, max_blocks=cap)
+        native.scan_buffers(len(data)), bitpos_out=bitpos, max_blocks=cap)
     return BlockIndex(header=header, bitpos=bitpos[:ng].copy(), n_good=ng,
                       first_err=err, oor=oor)
 
@@ -335,42 +326,14 @@ class RandomAccessCorpus:
                 raise ValueError("a batch needs files of one channel count, "
                                  f"got {chans}")
             if self._backend == "host":
-                return _crops_on_host(
-                    [_plan_crop(j, files[j], e[0], e[1], starts[j], frames,
-                                chans[0], pad)
-                     for j, e in enumerate(entries)], frames, chans[0])
+                return _crops_on_host(entries, starts, frames, chans[0],
+                                      pad, files)
             return _crops_on_device(entries, starts, frames, chans[0],
                                     self._device, pad=pad, files=files)
 
     @property
     def cached_files(self) -> int:
         return len(self._data_lru)
-
-
-@dataclasses.dataclass
-class _Crop:
-    """One crop of read_batch's host route, or the one segment of
-    read_segment: where it lies in its file's words, and the span of
-    blocks a read synthesizes for it (W warm-up blocks before block a: 1
-    for rows >= 2, the whole prefix for rows == 1). read_batch's device
-    route plans its crops the same way, natively (acm_scan_crops)."""
-
-    row: int
-    data: bytes
-    index: BlockIndex
-    start_word: int
-    #: the crop's words that exist (a whole number of frames)
-    valid: int
-    #: first block synthesized, blocks synthesized, of them warm-up ones
-    a0: int = 0
-    nb: int = 0
-    warm: int = 0
-    #: the crop's first word in its row of synthesized blocks
-    lo: int = 0
-
-    @property
-    def on_device(self) -> bool:
-        return self.valid > 0 and not self.index.oor
 
 
 def _pad_refused(row: int, file: int, start: int, valid: int, frames: int,
@@ -380,50 +343,49 @@ def _pad_refused(row: int, file: int, start: int, valid: int, frames: int,
                       "pad=False")
 
 
-def _plan_crop(row: int, file: int, data: bytes, index: BlockIndex,
-               start: int, frames: int, ch: int, pad: bool) -> _Crop:
-    h = index.header
-    bl = h.block_len
-    want = frames * ch
-    end_avail = min(h.total_values, index.words_avail)
-    start_word = max(0, start * ch)
-    stop_word = min(start_word + want, end_avail)
-    valid = max(0, stop_word - start_word)
-    valid -= valid % ch
-    if valid < want and not pad:
-        raise _pad_refused(row, file, start, valid, frames, ch)
-    c = _Crop(row, data, index, start_word, valid)
-    if c.on_device:
-        a = start_word // bl
-        b = -(-stop_word // bl)
-        c.warm = 1 if (a > 0 and h.rows >= 2) else a
-        c.a0 = a - c.warm
-        c.nb = b - c.a0
-        c.lo = start_word - c.a0 * bl
-    return c
-
-
 def _host_words(data, start_word: int, valid: int, want: int) -> np.ndarray:
     """A crop's `valid` words from `start_word`, zero-padded to `want`,
-    decoded on the host: an exact full decode of a stale-amp-table file,
-    nothing for a crop past its clip's end."""
+    decoded on the host: an exact full decode of a stale-amp-table file
+    (the native host decoder reproduces the stale table reads), nothing
+    for a crop past its clip's end."""
     out = np.zeros(want, dtype=np.int16)
     if valid:
-        from ..scan import oracle as _oracle
-
         with profiling.span("libacm.random_access.host_decode"):
-            _, pcm, _ = _oracle.decode_bytes(data)
+            pcm = native.decode_host(data).pcm
+        # copy: the pcm is a view of a refcount-gated pooled buffer
         out[:valid] = pcm[start_word : start_word + valid]
     return out
 
 
-def _crops_on_host(crops: list[_Crop], frames: int, ch: int) -> torch.Tensor:
-    out = np.zeros((len(crops), frames * ch), dtype=np.int16)
-    for c in crops:
-        if c.valid:
-            out[c.row, : c.valid] = read_segment(
-                c.data, c.index, c.start_word, c.valid, backend="host")
-    return torch.from_numpy(out).view(len(crops), frames, ch)
+def _host_crop(entry: tuple, f: list[int], want: int) -> np.ndarray:
+    """One planned crop's words (f: its CROP_INFO row of native.scan_crops),
+    zero-padded to `want`, by the native host decoder: a host row by
+    _host_words, any other crop its span of blocks decoded from its
+    warm-up block's bit."""
+    data, index = entry[0], entry[1]
+    code, _, start_word, valid, nb, _, lo, warm = f
+    if code == native.CROP_HOST:
+        return _host_words(data, start_word, valid, want)
+    a0 = start_word // index.header.block_len - warm
+    hd = native.decode_host(data, header=index.header, max_blocks=nb,
+                            start_bit=int(index.bitpos[a0]) if a0 else None)
+    if hd.n_good != nb:
+        raise _stale(nb, hd.n_good)
+    out = np.zeros(want, dtype=np.int16)
+    out[:valid] = hd.pcm[lo : lo + valid]  # a copy out of the pooled view
+    return out
+
+
+def _crops_on_host(entries, starts: list[int], frames: int, ch: int,
+                   pad: bool, files) -> torch.Tensor:
+    """read_batch's host route: one plan-only native call for the batch,
+    then each crop by _host_crop, on the CPU."""
+    status, info = _plan(entries, starts, frames, pad)
+    if status != native.CROPS_DONE:
+        _raise_for(status, info, files, starts, frames, ch)
+    out = np.stack([_host_crop(e, f, frames * ch)
+                    for e, f in zip(entries, info.tolist())])
+    return torch.from_numpy(out).view(len(entries), frames, ch)
 
 
 #: staging blobs per thread and card that may be in flight at once
@@ -493,11 +455,12 @@ def _crop_tables(n: int) -> tuple[np.ndarray, int]:
 
 
 def _scan_crops(entries, starts: list[int], frames: int, pad: bool,
-                device: torch.device):
+                device: torch.device | None):
     """native.scan_crops of the batch into a blob for `device` (pinned for
     a card, a new array for the CPU), called again with a larger blob
-    where the layout may not fit. Returns (status, the int64 result
-    array, the blob: a _Staging or an array)."""
+    where the layout may not fit; with no device, the plan alone (a null
+    blob). Returns (status, the int64 result array, the blob: a _Staging,
+    an array or None)."""
     n = len(entries)
     table = b"".join([e[3] for e in entries])
     try:
@@ -508,7 +471,9 @@ def _scan_crops(entries, starts: list[int], frames: int, pad: bool,
     res, res_address = _crop_tables(n)
     need = getattr(_TLS, "crop_blob_bytes", 1 << 20)
     while True:
-        if device.type == "cuda":
+        if device is None:
+            blob, address, cap = None, 0, 0
+        elif device.type == "cuda":
             blob = _staging(device, need)
             address, cap = blob.address, blob.tensor.numel()
         else:
@@ -522,12 +487,27 @@ def _scan_crops(entries, starts: list[int], frames: int, pad: bool,
         need = _TLS.crop_blob_bytes = int(res[1])
 
 
+def _info(res: np.ndarray, n: int) -> np.ndarray:
+    """The n CROP_INFO rows of native.scan_crops's result, int64 [n, I]."""
+    H, G, I = native.CROP_HEAD, native.CROP_GEOM, native.CROP_INFO
+    return res[H + G * n : H + (G + I) * n].reshape(n, I)
+
+
+def _plan(entries, starts: list[int], frames: int,
+          pad: bool) -> tuple[int, np.ndarray]:
+    """The batch's plan alone: native.scan_crops's status (CROPS_DONE or
+    CROPS_PAD_REFUSED) and its CROP_INFO rows (a view of this thread's
+    result array: read it before the thread's next call)."""
+    status, res, _ = _scan_crops(entries, starts, frames, pad, None)
+    return status, _info(res, len(entries))
+
+
 def _raise_for(status: int, info: np.ndarray, files, starts, frames: int,
                ch: int):
-    """The ValueError of a batch native.scan_crops refused, as the Python
-    plan raised it: the first crop short of its frames with pad=False,
-    else the stale geometry's first crop whose span starts past its bytes,
-    else its first that decoded fewer blocks than its index says."""
+    """The ValueError of a batch native.scan_crops refused: the first crop
+    short of its frames with pad=False, else the stale geometry's first
+    crop whose span starts past its bytes, else its first that decoded
+    fewer blocks than its index says."""
     codes = info[:, 0].tolist()
     if status == native.CROPS_PAD_REFUSED:
         j = codes.index(native.CROP_PAD)
@@ -551,15 +531,14 @@ def _crops_on_device(entries, starts: list[int], frames: int, ch: int,
     B, want = len(entries), frames * ch
     if not want:
         return torch.zeros((B, frames, ch), dtype=torch.int16, device=device)
-    H, G, I = native.CROP_HEAD, native.CROP_GEOM, native.CROP_INFO
+    H, G = native.CROP_HEAD, native.CROP_GEOM
     # a batch of stale-amp-table clips alone has no span to scan
     scans = any(not e[1].oor for e in entries)
     with (profiling.span("libacm.random_access.scan") if scans
           else profiling.OFF):
         status, res, blob = _scan_crops(entries, starts, frames, pad, device)
     if status != native.CROPS_DONE:
-        _raise_for(status, res[H + G * B : H + (G + I) * B].reshape(B, I),
-                   files, starts, frames, ch)
+        _raise_for(status, _info(res, B), files, starts, frames, ch)
     _, total, n_geo, n_host, host_off, meta_off, n_dev, reordered = (
         res[:H].tolist())
     geos = res[H : H + G * n_geo].reshape(n_geo, G).tolist()
@@ -572,7 +551,7 @@ def _crops_on_device(entries, starts: list[int], frames: int, ch: int,
     stage = blob if isinstance(blob, _Staging) else None
     if n_host:  # host-decoded rows, in batch order, where the call left room
         host = stage.array if stage is not None else blob
-        info = res[H + G * B : H + (G + I) * B].reshape(B, I)
+        info = _info(res, B)
         o = host_off
         for j in np.flatnonzero(info[:, 0] == native.CROP_HOST).tolist():
             host[o : o + 2 * want] = _host_words(
@@ -662,26 +641,22 @@ def read_segment(data: bytes, index: BlockIndex, start_word: int,
 def _segment(entry: tuple, start: int, n: int, ch: int, backend,
              dev) -> np.ndarray:
     """The words of frames [start, start + n) of `entry`'s clip (clamped
-    at its decodable end) by read_segment's routes. `entry` is (bytes,
-    BlockIndex, channels), followed by its row of the native crop table
-    and what that points into where the caller has registered it."""
+    at its decodable end): a batch of one crop, planned by one plan-only
+    native call, then decoded on the host (backend="host", or a
+    stale-amp-table clip) or by read_batch's device route. `entry` is
+    (bytes, BlockIndex, channels), followed by its row of the native crop
+    table and what that points into where the caller has registered it."""
     data, index = entry[0], entry[1]
-    c = _plan_crop(0, 0, data, index, start, max(0, n), ch, True)
-    if not c.valid:
-        return np.zeros(0, dtype=np.int16)
-    if index.oor:
-        # stale-amp-table stream: only a full host decode is exact
-        return _host_words(data, c.start_word, c.valid, c.valid)
-    if backend == "host":
-        hd = native.decode_host(data, header=index.header, max_blocks=c.nb,
-                                start_bit=int(index.bitpos[c.a0]) if c.a0
-                                else None)
-        if hd.n_good != c.nb:
-            raise _stale(c.nb, hd.n_good)
-        # copy: hd.pcm is a view of a refcount-gated pooled buffer
-        return hd.pcm[c.lo : c.lo + c.valid].copy()
     if len(entry) == 3:
         entry += native.clip_row(data, index.bitpos, index.header,
                                  index.n_good, ch, index.oor)
-    return _crops_on_device([entry], [start], c.valid // ch, ch,
+    # within an int64: no clip holds more frames than words
+    frames = min(max(0, n), index.header.total_values)
+    f = _plan([entry], [start], frames, True)[1][0].tolist()
+    valid = f[3]
+    if not valid:
+        return np.zeros(0, dtype=np.int16)
+    if backend == "host" or f[0] == native.CROP_HOST:
+        return _host_crop(entry, f, valid)
+    return _crops_on_device([entry], [start], valid // ch, ch,
                             dev).view(-1).cpu().numpy()

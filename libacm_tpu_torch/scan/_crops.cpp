@@ -105,12 +105,16 @@ extern "C" {
 //   and the block index alive; one channel count ch, read from crop 0);
 //   starts [n]: first frames (negative reads as 0). A crop is `frames`
 //   frames, want = frames * ch words.
-// Each crop is planned as parallel/random_access.py::_plan_crop does (its
-// whole frames that exist; blocks [a0, a0 + nb) with 1 warm-up block for
-// rows >= 2 and the whole prefix for rows == 1; lo, its first word in
-// them). Crops on the card are grouped by (level, rows) in order of first
-// appearance, each span scanned in place from its warm-up block's bit, and
-// blob [cap] laid out as:
+// The port's one crop plan, which every random-access read on either route
+// reads: each crop's whole frames that exist (the valid-word clamp); blocks
+// [a0, a0 + nb) with 1 warm-up block for rows >= 2 and the whole prefix for
+// rows == 1 (the warm-up rule); lo, its first word in them. A null blob
+// (blob == nullptr, cap == 0) asks for the plan only: the CROP_INFO rows are
+// filled (blocks decoded left 0) and the call returns; nothing is scanned
+// or laid out, and the head and the geometry rows stay zero but for the
+// status. Otherwise crops on the card are grouped by (level, rows) in order
+// of first appearance, each span scanned in place from its warm-up block's
+// bit, and blob [cap] laid out as:
 //   per geometry, at CROP_ALIGN offsets, the nine cols-wire sections of a
 //   [count, nbp] launch (ops.synth_torch.cols_blob_layout: cls, pay4/8/16,
 //   wid4/8/16, vals, wrap0), nbp = the most blocks a row needs (its span,
@@ -126,9 +130,10 @@ extern "C" {
 //   first crop's lo; then CROP_INFO a crop (n of them, after n geometry
 //   rows): code (CROP_*), geometry (-1 if none), start word, valid words,
 //   blocks, blocks decoded, lo, warm-up blocks.
-// Returns the status: 0 done; 1 a crop is short and pad is 0 (nothing
-// scanned); 2 a span is stale (scanning stopped after its geometry); 3
-// blob is too small, out[1] = the bytes it needs (nothing scanned).
+// Returns the status: 0 done (or planned, for a null blob); 1 a crop is
+// short and pad is 0 (nothing scanned); 2 a span is stale (scanning stopped
+// after its geometry); 3 blob is too small, out[1] = the bytes it needs
+// (nothing scanned).
 int64_t acm_scan_crops(const int64_t* clips, const int64_t* starts,
                        int64_t n, int64_t frames, int32_t pad, uint8_t* blob,
                        int64_t cap, int64_t* out) {
@@ -195,6 +200,7 @@ int64_t acm_scan_crops(const int64_t* clips, const int64_t* starts,
     n_dev++;
   }
   if (refused) return head[0] = 1;
+  if (blob == nullptr) return head[0] = 0;  // the plan only
 
   // each crop's place in the order geometries, then host rows
   const int64_t n_groups = static_cast<int64_t>(groups.size());

@@ -473,6 +473,19 @@ class CorpusScanBuffers:
         return (8 * (nbytes + 1)) // 20 + 4 <= len(self.events)
 
 
+_BUFS_TLS = threading.local()
+
+
+def scan_buffers(nbytes: int) -> CorpusScanBuffers:
+    """This thread's CorpusScanBuffers, made anew where they cannot hold
+    a scan of nbytes bytes (at least 4 MiB of file)."""
+    bufs = getattr(_BUFS_TLS, "bufs", None)
+    if bufs is None or not bufs.fits(nbytes):
+        bufs = _BUFS_TLS.bufs = CorpusScanBuffers(
+            max_file_bytes=max(1 << 22, nbytes))
+    return bufs
+
+
 def scan_corpus_into(
     data: bytes,
     header: AcmHeader,
@@ -620,8 +633,11 @@ def scan_crops(clips: bytes, starts: bytes, n: int, frames: int, pad: bool,
     lays their wire and metadata out in the blob at address `blob`
     (`cap` bytes); `clips` holds n rows of clip_row, `starts` n int64
     first frames, `out` the address of an int64 array of at least
-    CROP_HEAD + (CROP_GEOM + CROP_INFO) * n. Returns a CROPS_* status; the
-    layout and the tables are documented at acm_scan_crops in _crops.cpp.
+    CROP_HEAD + (CROP_GEOM + CROP_INFO) * n. A null blob (blob=0, cap=0)
+    asks for the plan alone: the CROP_INFO rows, with nothing scanned or
+    laid out, and CROPS_DONE or CROPS_PAD_REFUSED. Returns a CROPS_*
+    status; the plan, the layout and the tables are documented at
+    acm_scan_crops in _crops.cpp.
     """
     return _load().acm_scan_crops(clips, starts, n, frames, 1 if pad else 0,
                                   blob, cap, out)

@@ -2,15 +2,18 @@
 scan/_crops.cpp) against plain Python, on the CPU.
 
 The call plans every crop of a batch, scans each span in place in its
-clip's bytes and lays the wire and the metadata out in one blob. Held
-here, on seeded random files at a small size: its plan against a plain
-copy of the Python plan (random_access._plan_crop and the launch's block
-count), crop by crop and geometry by geometry; its blob, byte for byte,
-against what the ingest path's scan (native.scan_corpus_chunk over the
-spans staged back to back) and corpus._coalesce_wire make of the same
-spans; the same errors as the Python plan; the host rows of a
-stale-amp-table file; the crop table across the file LRU; a blob too small
-at first; and the counters a batch records under a profiler.
+clip's bytes and lays the wire and the metadata out in one blob; with a
+null blob it plans alone, for the host route and for segment reads. Held
+here, on seeded random files at a small size: its plan against the
+test's own plain Python copy of it (the valid-word clamp, the warm-up
+rule and the launch's block count), crop by crop and geometry by
+geometry; the plan-only call's rows against the full call's; its blob,
+byte for byte, against what the ingest path's scan
+(native.scan_corpus_chunk over the spans staged back to back) and
+corpus._coalesce_wire make of the same spans; the same errors on the card
+and host routes; the host rows of a stale-amp-table file; the crop table
+across the file LRU; a blob too small at first; and the counters a batch
+records under a profiler.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ GEOMETRIES = [(7, 16, 9, 1), (4, 40, 7, 1), (3, 1, 10, 1), (2, 1, 6, 1),
 
 
 def _plain_plan(idx, start: int, frames: int, ch: int) -> dict:
-    """random_access._plan_crop, and the blocks a launch row needs for the
-    crop, in plain Python."""
+    """The plan acm_scan_crops makes of a crop, and the blocks a launch row
+    needs for it, in plain Python: this test's own copy."""
     h = idx.header
     bl = h.block_len
     want = frames * ch
@@ -153,6 +156,35 @@ def test_native_plan_equals_the_python_plan(geometry, seed):
                             len(ps) * nbp - sum(p["nb"] for p in ps),
                             int(any(p["valid"] < frames * ch for p in ps)),
                             ps[0]["lo"]]
+
+
+@pytest.mark.parametrize("geometry", CASES)
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("pad", [True, False])
+def test_plan_only_call_equals_the_full_calls_plan(geometry, seed, pad):
+    """A null blob asks for the plan alone: the same status and CROP_INFO
+    rows as the full call, but the blocks a span decoded (only a scan
+    knows them), and nothing else written."""
+    rac, _, files, starts, frames, _ = _batch(geometry, seed)
+    entries = [rac._entry(i) for i in files]
+    B = len(files)
+    status, res, _ = ra._scan_crops(entries, starts, frames, pad, CPU)
+    full = ra._info(res, B).copy()
+    size = H + (G + I) * B
+    out = np.full(size + 64, -7, np.int64)
+    plan_status = native.scan_crops(
+        b"".join(e[3] for e in entries),
+        np.asarray(starts, np.int64).tobytes(), B, frames, pad, 0, 0,
+        out.ctypes.data)
+    assert plan_status == status
+    assert status == native.CROPS_DONE or (
+        not pad and status == native.CROPS_PAD_REFUSED)
+    plan = ra._info(out, B)
+    np.testing.assert_array_equal(np.delete(plan, 5, axis=1),
+                                  np.delete(full, 5, axis=1))
+    assert not plan[:, 5].any()
+    assert out[0] == status and not out[1 : H + G * B].any()
+    assert (out[size:] == -7).all()
 
 
 def _ingest_wire(ps, entries_of, level, rows, nbp):
@@ -279,7 +311,7 @@ def test_stale_index_raises_as_the_python_plan(cut):
         cls, pwr, vals, *streams = ra._index_scratch(plan["nb"], 4, 8)
         n_good = native.scan_corpus_into(
             data[:keep], idx.header, cls, pwr, vals, *streams,
-            ra._bufs(keep), start_bit=int(idx.bitpos[a0]),
+            native.scan_buffers(keep), start_bit=int(idx.bitpos[a0]),
             max_blocks=plan["nb"])[0]
         assert 0 < n_good < plan["nb"]
     with pytest.raises(ValueError) as exc:
@@ -465,4 +497,6 @@ def test_read_reuses_the_registered_crop_row(channels, monkeypatch):
                                 n * channels, device="cpu")
         want = words[: len(words) - len(words) % channels]
         np.testing.assert_array_equal(got.reshape(-1), want)
-    assert len(rows) == 3  # read_segment's own rows; read made none
+    # read_segment's own rows, one a read (a read past the end is planned
+    # too); read made none
+    assert len(rows) == 4

@@ -9,10 +9,11 @@ which imports neither JAX nor the program) sliced and padded by HiFi-GAN's
 rule; tolerance 0. The cases: rows == 1 (prefix fallback), level 0,
 stereo, crops at block 0, crops reaching the end of a truncated file, a
 stale-amp-table file (exact host decode), mixed geometries in one batch,
-mixed channel counts (ValueError), a batch of one, pad=False, the host
-backend, and the spans and counters recorded only under a profiler. The
-cases marked `cuda` run read_batch on a card against the CPU, and launch
-the fused kernel from four threads at two shared-memory sizes.
+mixed channel counts (ValueError), a batch of one, pad=False and a stale
+index on both CPU routes (the same message), the host backend, and the
+spans and counters recorded only under a profiler. The cases marked
+`cuda` run read_batch on a card against the CPU, and launch the fused
+kernel from four threads at two shared-memory sizes.
 """
 
 from __future__ import annotations
@@ -203,14 +204,21 @@ def test_bad_arguments_raise():
     assert rac.read_batch([0], [5], 0).shape == (1, 0, 1)
 
 
-def test_pad_false_raises_past_the_end_only():
+#: RandomAccessCorpus keyword arguments of the two CPU routes
+ROUTES = {"device": {"device": "cpu"}, "host": {"backend": "host"}}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_pad_false_raises_past_the_end_only(route):
     rng = np.random.default_rng(15)
     srcs = [testing.random_acm_bytes(rng, level=4, rows=16, n_blocks=4)]
-    rac = RandomAccessCorpus(srcs, device="cpu")
+    rac = RandomAccessCorpus(srcs, **ROUTES[route])
     total = rac.pcm_total(0)
     _check(rac, srcs, [0, 0], [0, total - 100], 100, pad=False)
-    with pytest.raises(ValueError, match="pad=False"):
+    with pytest.raises(ValueError) as exc:
         rac.read_batch([0, 0], [0, total - 99], 100, pad=False)
+    assert str(exc.value) == ("crop 1 (file 0, frame %d): 99 of 100 frames "
+                              "decodable and pad=False" % (total - 99))
 
 
 def test_host_backend_equals_device_route():
@@ -240,15 +248,21 @@ def test_small_file_cache_rereads_sources(tmp_path):
     assert rac.cached_files == 2
 
 
-def test_stale_index_raises():
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_stale_index_raises(route):
     rng = np.random.default_rng(31)
     data = testing.speech_acm_bytes(rng, level=4, rows=8, n_blocks=10)
-    rac = RandomAccessCorpus([data], device="cpu")
+    rac = RandomAccessCorpus([data], **ROUTES[route])
     rac.pcm_total(0)  # the index of the whole file
     idx = build_index(data)
     rac._data_lru[0] = data[: len(data) // 2]  # the bytes changed since
-    with pytest.raises(ValueError, match="stale BlockIndex"):
+    with pytest.raises(ValueError) as exc:
         rac.read_batch([0], [6 * idx.header.block_len], 500)
+    # blocks [5, 10) from block 6's warm-up block, which starts past the
+    # bytes left
+    assert str(exc.value) == (
+        "index/stream mismatch: indexed span of 5 blocks decodes only 0 — "
+        "stale BlockIndex for these bytes (rebuild with build_index)")
 
 
 BATCH_SPANS = {"libacm.random_access.batch", "libacm.random_access.index",
